@@ -8,20 +8,36 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
 1. the card's name and power limit; build the CUDA kernels from
-   ``src/repro_torch/kernels/csrc`` and print the build time;
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all at once)
+   and print the build time and ``ptxas`` lines; generate the CSR corpus
+   (100,000 x 65,536 at density 0.002, seed 0: the sparse benchmark default
+   of ``benchmarks/erm_timing.py``) and print how long that took;
 2. each fused kernel against its plain PyTorch version on the card — the
    main-path shape (a 5,000,000 x 18 SUSY-shaped corpus resident, b = 500)
    and a wide case (l = 20,000, n = 4,096 and a ragged n = 1,000), three
    losses, starts of -5, l-b+7 and 0, row ids with duplicates — then each
    kernel's median time from CUDA events beside its bound, its plain
    version's and (where one PyTorch call computes the same) the library's;
+2b. the CSR corpus staged with ``csr_to_device``; the sparse kernels' path:
+   one MBSGD epoch per scheme driven through ``sparse_batch_grad`` and
+   ``sparse_batch_objective`` (launches counted around it), its w held
+   against the ``sparse-csr`` backend's; then each sparse kernel against its
+   plain version on every batch of one epoch of each scheme (three losses),
+   at clamped starts, and on a small hand-written corpus (an empty row, a
+   repeated column, a row of 5,000 nonzeros); two calls of each kernel give
+   equal bits; then each kernel's times beside its bound;
 3. the main path at full size through ``plan()``/``execute()``: three
    resident-fused cells of 2 epochs and one streamed-eager epoch on the
    synthetic corpus, with every kernel's launch count read around the run;
+3b. the CSR path at full size: three ``sparse-csr`` cells of 2 epochs, and
+   saga/systematic once more for bitwise-equal w;
 4. the 45-cell matrix (5 solvers x RS/CS/SS x constant / vectorized /
    sequential line search) at l = 20,000: every kernel against its plain
    version at every step of the eager trajectory, and resident-fused
    against resident-eager on the final w;
+4b. the 15 constant-step cells at l = 2,000, n = 4,096, density 0.01,
+   b = 100: ``sparse-csr`` on the CSR corpus against ``streamed-eager`` on
+   the same corpus densified, on the final w;
 5. one JSON line of kernel records, the ``nvidia-smi`` line, and the
    device record as the last line.
 
@@ -37,6 +53,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -49,7 +66,14 @@ REPLACES = {"fused_grad_block": "src/repro/kernels/fused_erm.py:140",
             "fused_grad_rows": "src/repro/kernels/fused_erm.py:197",
             "fused_margins_block": "src/repro/kernels/fused_erm.py:254",
             "fused_margins_rows": "src/repro/kernels/fused_erm.py:290"}
+SPARSE_SOURCE = "src/repro_torch/kernels/csrc/sparse_erm.cu"
+SPARSE_REPLACES = {"sparse_grad_rows": "src/repro/kernels/sparse_erm.py:180",
+                   "sparse_grad_block": "src/repro/kernels/sparse_erm.py:260",
+                   "sparse_margins_rows": "src/repro/kernels/sparse_erm.py:339",
+                   "sparse_margins_block":
+                       "src/repro/kernels/sparse_erm.py:405"}
 B = 500
+CSR_FEATURES, CSR_DENSITY = 65_536, 0.002
 
 
 def log(*a):
@@ -100,6 +124,20 @@ def host_ms(torch, fn, reps: int) -> float:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def hold(torch, errs, name, k, p, tag, rel=1e-4):
+    """Kernel output ``k`` against its plain version ``p``: max|k - p| <=
+    rel max|p| + 1e-6, and ``k`` finite; the worst error goes into
+    ``errs``.  The sparse kernels take rel = 1e-4: float32 sums of up to
+    thousands of products in another order."""
+    torch.cuda.synchronize()
+    err = (k - p).abs().max().item()
+    tol = rel * p.abs().max().item() + 1e-6
+    errs[name] = max(errs.get(name, 0.0), err)
+    if not (err <= tol and torch.isfinite(k).all().item()):
+        raise AssertionError(f"{name} {tag}: max|k-p| = {err:.3e} > "
+                             f"{tol:.3e}")
+
+
 def check_kernels(torch, fe, X, y, tag, errs):
     """Every kernel against its plain version on (X, y); record max |k - p|
     per kernel in ``errs``.  Tolerance max|k - p| <= rel * max|p| + 1e-6,
@@ -117,13 +155,7 @@ def check_kernels(torch, fe, X, y, tag, errs):
                                              device="cuda")]
 
     def cmp(name, k, p):
-        torch.cuda.synchronize()
-        err = (k - p).abs().max().item()
-        tol = rel * p.abs().max().item() + 1e-6
-        errs[name] = max(errs.get(name, 0.0), err)
-        if not (err <= tol and torch.isfinite(k).all().item()):
-            raise AssertionError(f"{name} {tag}: max|k-p| = {err:.3e} > "
-                                 f"{tol:.3e}")
+        hold(torch, errs, name, k, p, tag, rel)
 
     for s in starts:
         cmp("fused_margins_block", fe.fused_margins_block(X, w, s,
@@ -416,11 +448,374 @@ def matrix(torch, api, fe, rows, n):
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: the sparse kernels
+# ---------------------------------------------------------------------------
+
+def sparse_kernel_path(torch, api, se, dev, path, l, n):
+    """The sparse kernels' own path, as a user reaches them: MBSGD at the
+    planner's constant step 1/L for one epoch of each scheme, every step's
+    gradient from ``sparse_batch_grad`` and every batch's objective from
+    ``sparse_batch_objective`` on the staged corpus.  The launch counts are
+    read around this run.  Each final w is then held against the
+    ``sparse-csr`` backend's (the same cell through ``plan()``/
+    ``execute()``, padded-ELL steps over the same batches) at rtol 1e-4 /
+    atol 1e-6."""
+    from repro_torch.core import samplers
+    runs = {}
+    se.reset_launches()
+    for scheme in api.SCHEMES:
+        p = api.plan(api.ExperimentSpec(
+            api.DataSource.corpus(path), solver="mbsgd", scheme=scheme,
+            batch_size=B, epochs=1, record_objective=False))
+        prob, step = p.spec.problem, p.cfg.step_size
+        sched = torch.from_numpy(samplers.epoch_schedule(scheme, 0, 0, l,
+                                                         B)).cuda()
+        w = torch.zeros(n, device="cuda")
+        objs = torch.empty(sched.shape[0], device="cuda")
+        for j in range(sched.shape[0]):
+            kw = (dict(start=sched[j], batch_size=B) if sched.dim() == 1
+                  else dict(idx=sched[j]))
+            objs[j] = se.sparse_batch_objective(prob, dev, w, **kw)
+            w = w - step * se.sparse_batch_grad(prob, dev, w, **kw)
+        runs[scheme] = (p, w, objs)
+    torch.cuda.synchronize()
+    launches = dict(se.LAUNCHES)
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"{name} was never launched on the sparse "
+                                 f"kernels' path")
+    out = []
+    f0 = math.log(2.0)
+    for scheme, (p, w, objs) in runs.items():
+        mean_obj = objs.mean().item()
+        if not (torch.isfinite(objs).all().item() and mean_obj < f0):
+            raise AssertionError(f"kernel path {scheme}: mean batch "
+                                 f"objective {mean_obj} not finite and "
+                                 f"below {f0}")
+        ref = api.execute(p).w
+        wk = w.cpu().numpy()
+        dw = np.abs(wk - ref)
+        if not np.allclose(wk, ref, rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"kernel path {scheme}: w differs from the "
+                                 f"sparse-csr backend's by max |dw| "
+                                 f"{dw.max():.3e}")
+        out.append({"scheme": scheme, "mean_batch_objective": mean_obj,
+                    "max_abs_dw": float(dw.max()),
+                    "max_rel_dw": float(np.max(dw / (np.abs(ref) + 1e-6)))})
+        log(f"  kernel path mbsgd/{scheme}: mean batch objective "
+            f"{mean_obj:.6f}, w within rtol 1e-4 of sparse-csr (max |dw| "
+            f"{dw.max():.3e})")
+    log(f"  launches on the kernel path: {launches}")
+    return launches, out
+
+
+def check_sparse_batches(torch, se, dev, w, kw, tag, errs):
+    """Every sparse kernel against its plain version on one batch: the
+    margins, and the gradient under each loss."""
+    from repro_torch.core.erm import LOSSES
+    a = (dev.vals, dev.cols, dev.indptr)
+    if "start" in kw:
+        s, b = kw["start"], kw["batch_size"]
+        hold(torch, errs, "sparse_margins_block",
+             se.sparse_margins_block(*a, w, s, batch_size=b),
+             se._margins_block_plain(*a, w, s, b), tag)
+        for loss in LOSSES:
+            hold(torch, errs, "sparse_grad_block",
+                 se.sparse_grad_block(*a, dev.y, w, s, loss=loss,
+                                      batch_size=b),
+                 se._grad_block_plain(*a, dev.y, w, s, b, loss), tag)
+    else:
+        idx = kw["idx"]
+        hold(torch, errs, "sparse_margins_rows",
+             se.sparse_margins_rows(*a, w, idx),
+             se._margins_rows_plain(*a, w, idx), tag)
+        for loss in LOSSES:
+            hold(torch, errs, "sparse_grad_rows",
+                 se.sparse_grad_rows(*a, dev.y, w, idx, loss=loss),
+                 se._grad_rows_plain(*a, dev.y, w, idx, loss), tag)
+
+
+def hand_corpus(sparse, path):
+    """16 rows over 8,192 features: an empty row, a row whose columns repeat
+    (3, 3, 7, 7, 7), a row of 5,000 nonzeros, and 13 short rows."""
+    rng = np.random.default_rng(2)
+    n = 8192
+    rows = [(np.zeros(0, np.int32), np.zeros(0)),
+            (np.array([3, 3, 7, 7, 7, 100], np.int32), rng.normal(size=6)),
+            (np.sort(rng.choice(n, 5000, replace=False)), rng.normal(size=5000))]
+    for _ in range(13):
+        k = int(rng.integers(1, 40))
+        rows.append((np.sort(rng.choice(n, k, replace=False)),
+                     rng.normal(size=k)))
+    lens = [len(c) for c, _ in rows]
+    sparse.write_csr_corpus(
+        path, indptr=np.concatenate([[0], np.cumsum(lens)]),
+        indices=np.concatenate([c for c, _ in rows]),
+        values=np.concatenate([v for _, v in rows]),
+        labels=np.where(rng.uniform(size=len(rows)) < 0.5, 1.0, -1.0),
+        features=n)
+    return sparse.open_csr_corpus(path)
+
+
+def check_sparse_kernels(torch, se, sparse, dev, l, n, root, errs):
+    """Phase 2b's card checks (the launches here do not count)."""
+    from repro_torch.core import samplers
+    g = torch.Generator(device="cuda").manual_seed(5)
+    w = torch.randn(n, device="cuda", generator=g) * 0.1
+    for scheme in ("random", "cyclic", "systematic"):
+        sched = torch.from_numpy(samplers.epoch_schedule(scheme, 0, 0, l,
+                                                         B)).cuda()
+        for j in range(sched.shape[0]):
+            kw = (dict(start=sched[j], batch_size=B) if sched.dim() == 1
+                  else dict(idx=sched[j]))
+            check_sparse_batches(torch, se, dev, w, kw, f"{scheme} batch {j}",
+                                 errs)
+    for s in (-5, 0, l - B, l - B + 7,
+              torch.tensor(l // 3, dtype=torch.int32, device="cuda")):
+        check_sparse_batches(torch, se, dev, w, dict(start=s, batch_size=B),
+                             f"start {s}", errs)
+    idx = torch.randint(0, l, (B,), device="cuda", generator=g,
+                        dtype=torch.int32)
+    idx[1], idx[7], idx[8], idx[9] = idx[0], 0, l - 1, l - 1
+    check_sparse_batches(torch, se, dev, w, dict(idx=idx), "rows with "
+                         "duplicates", errs)
+    log(f"  every batch of one epoch of RS/CS/SS, clamped starts and "
+        f"duplicate rows: all four kernels agree with their plain versions")
+
+    hand = hand_corpus(sparse, root / "hand.csr")
+    hd = se.csr_to_device(hand, batch_size=8)
+    wh = torch.randn(hand.features, device="cuda", generator=g) * 0.1
+    for s in (0, 1, 8, 20):
+        check_sparse_batches(torch, se, hd, wh, dict(start=s, batch_size=8),
+                             f"hand corpus start {s}", errs)
+    check_sparse_batches(
+        torch, se, hd, wh,
+        dict(idx=torch.tensor([2, 0, 1, 1, 15, 2, 9, 0], dtype=torch.int32,
+                              device="cuda")), "hand corpus rows", errs)
+    z = se.sparse_margins_rows(hd.vals, hd.cols, hd.indptr, wh,
+                               torch.zeros(1, dtype=torch.int32,
+                                           device="cuda"))
+    if z.item() != 0.0:
+        raise AssertionError(f"the empty row's margin is {z.item()}, not 0")
+    log("  hand corpus (empty row, repeated column, 5,000-nonzero row): "
+        "agree")
+
+    a = (dev.vals, dev.cols, dev.indptr)
+    start = torch.tensor(l // 2, dtype=torch.int32, device="cuda")
+    calls = {
+        "sparse_grad_block": lambda: se.sparse_grad_block(
+            *a, dev.y, w, start, loss="logistic", batch_size=B),
+        "sparse_grad_rows": lambda: se.sparse_grad_rows(
+            *a, dev.y, w, idx, loss="logistic"),
+        "sparse_margins_block": lambda: se.sparse_margins_block(
+            *a, w, start, batch_size=B),
+        "sparse_margins_rows": lambda: se.sparse_margins_rows(*a, w, idx)}
+    for name, call in calls.items():
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        if not torch.equal(first, second):
+            raise AssertionError(f"{name}: two calls on the same inputs gave "
+                                 f"different bits")
+    log("  two calls of each sparse kernel give equal bits")
+
+
+def time_sparse_kernels(torch, se, dev, csr, l, n, reps):
+    """Per sparse kernel: device ms, host ms, plain ms, library ms (the
+    margins block only: ``torch.mv`` on a sparse CSR view of the block,
+    cuSPARSE), and the bound from the bytes this run's batches need — their
+    nonzeros' vals and cols, the distinct w entries they touch, their
+    indptr entries, labels, schedule entry and output, each once."""
+    from repro_torch.core import samplers
+    ss = samplers.epoch_schedule("systematic", 0, 0, l, B)[:64]
+    rs = samplers.epoch_schedule("random", 0, 0, l, B)[:64]
+    nt = len(ss)
+    starts, idx = torch.from_numpy(ss).cuda(), torch.from_numpy(rs).cuda()
+    ptr = np.asarray(csr.indptr)
+    cols_h = np.asarray(csr.indices)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    w = torch.randn(n, device="cuda", generator=g) * 0.1
+    a = (dev.vals, dev.cols, dev.indptr)
+
+    def need(rows):
+        """(nonzeros, distinct columns) of a batch's rows."""
+        segs = [cols_h[ptr[r]:ptr[r + 1]] for r in rows]
+        return (int(sum(len(c) for c in segs)),
+                len(np.unique(np.concatenate(segs))))
+
+    blk = [need(range(s, s + B)) for s in ss]
+    rws = [need(r) for r in rs]
+    nnz_b = statistics.mean(x for x, _ in blk)
+    nnz_r = statistics.mean(x for x, _ in rws)
+    uniq_b = statistics.mean(u for _, u in blk)
+    uniq_r = statistics.mean(u for _, u in rws)
+    ptr_b, ptr_r = (B + 1) * 4 + 4, 2 * B * 4 + B * 4   # indptr + schedule
+    bytes_ = {
+        "sparse_margins_block": nnz_b * 8 + uniq_b * 4 + ptr_b + B * 4,
+        "sparse_margins_rows": nnz_r * 8 + uniq_r * 4 + ptr_r + B * 4,
+        "sparse_grad_block": nnz_b * 8 + uniq_b * 4 + ptr_b + B * 4 + n * 4,
+        "sparse_grad_rows": nnz_r * 8 + uniq_r * 4 + ptr_r + B * 4 + n * 4}
+    ops = {"sparse_margins_block": 2 * nnz_b, "sparse_margins_rows": 2 * nnz_r,
+           "sparse_grad_block": 4 * nnz_b + 8 * B,
+           "sparse_grad_rows": 4 * nnz_r + 8 * B}
+    lib_a = []
+    with warnings.catch_warnings():       # "sparse CSR support is beta"
+        warnings.simplefilter("ignore", UserWarning)
+        for s in ss:
+            e0, e1 = int(ptr[s]), int(ptr[s + B])
+            lib_a.append(torch.sparse_csr_tensor(
+                dev.indptr[s:s + B + 1] - e0, dev.cols[e0:e1],
+                dev.vals[e0:e1], size=(B, n), check_invariants=False))
+    loss = "logistic"
+    calls = {
+        "sparse_margins_block": (
+            lambda i: se.sparse_margins_block(*a, w, starts[i % nt],
+                                              batch_size=B),
+            lambda i: se._margins_block_plain(*a, w, starts[i % nt], B),
+            lambda i: torch.mv(lib_a[i % nt], w)),
+        "sparse_margins_rows": (
+            lambda i: se.sparse_margins_rows(*a, w, idx[i % nt]),
+            lambda i: se._margins_rows_plain(*a, w, idx[i % nt]), None),
+        "sparse_grad_block": (
+            lambda i: se.sparse_grad_block(*a, dev.y, w, starts[i % nt],
+                                           loss=loss, batch_size=B),
+            lambda i: se._grad_block_plain(*a, dev.y, w, starts[i % nt], B,
+                                           loss), None),
+        "sparse_grad_rows": (
+            lambda i: se.sparse_grad_rows(*a, dev.y, w, idx[i % nt],
+                                          loss=loss),
+            lambda i: se._grad_rows_plain(*a, dev.y, w, idx[i % nt], loss),
+            None)}
+    for i in range(nt):      # the library's answer is the kernel's
+        torch.testing.assert_close(calls["sparse_margins_block"][2](i),
+                                   calls["sparse_margins_block"][0](i),
+                                   rtol=1e-4, atol=1e-6)
+    out = {}
+    for name, (kern, plain, lib) in calls.items():
+        t_bytes = bytes_[name] / HBM_BYTES_PER_S * 1e3
+        t_ops = ops[name] / F32_OPS_PER_S * 1e3
+        out[name] = {
+            "ms": device_ms(torch, kern, reps),
+            "host_ms": host_ms(torch, kern, reps),
+            "plain_ms": device_ms(torch, plain, reps),
+            "library_ms": None if lib is None else device_ms(torch, lib,
+                                                             reps),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": bytes_[name], "ops": ops[name],
+            "shape": [l, n, B], "nnz_per_batch": nnz_b if "block" in name
+            else nnz_r}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 3b and 4b: the CSR path
+# ---------------------------------------------------------------------------
+
+def csr_main_path(api, fe, se, path):
+    """Three ``sparse-csr`` cells of 2 epochs at full size, then saga/SS
+    again for bitwise-equal w.  The backend steps on padded-ELL batches, as
+    the reference's does, and launches no kernel."""
+    from repro_torch.obs import TracePolicy
+    f0 = math.log(2.0)
+    cells = [("saga", "systematic", "constant"),
+             ("svrg", "random", "line_search"),
+             ("saag2", "cyclic", "line_search")]
+    before = {**fe.LAUNCHES, **se.LAUNCHES}
+    out, ws = [], {}
+    for solver, scheme, step_mode in cells + [cells[0]]:
+        spec = api.ExperimentSpec(api.DataSource.corpus(path), solver=solver,
+                                  scheme=scheme, step_mode=step_mode,
+                                  batch_size=B, epochs=2, trace=TracePolicy())
+        p = api.plan(spec)
+        if p.backend != api.SPARSE_CSR:
+            raise AssertionError(f"a CSR corpus planned to {p.backend}")
+        r = api.execute(p)
+        hist = [float(h) for h in r.history]
+        cell = f"{solver}/{scheme}/{p.step_rule}"
+        if not all(math.isfinite(h) and h < f0 for h in hist):
+            raise AssertionError(f"csr {cell}: objectives {hist} not finite "
+                                 f"and below {f0}")
+        if step_mode == "line_search" and not hist[1] < hist[0]:
+            raise AssertionError(f"csr {cell}: objective rose: {hist}")
+        r.verify_timeline()
+        if cell in ws:
+            if not np.array_equal(ws[cell], r.w):
+                raise AssertionError(f"csr {cell}: a second run gave other "
+                                     f"bits in w (max |dw| "
+                                     f"{np.abs(ws[cell] - r.w).max():.3e})")
+            log(f"  csr {cell} again: bitwise-equal w")
+            continue
+        ws[cell] = r.w
+        bd, st = r.breakdown(), r.stats
+        log(f"  csr {cell}: epoch_s {bd['epoch_s']:.3f} (access "
+            f"{bd['access_s_per_epoch']:.3f}, h2d {bd['h2d_s_per_epoch']:.3f},"
+            f" compute {bd['compute_s_per_epoch']:.3f}), objective "
+            f"{r.objective:.6f} (history {[round(h, 6) for h in hist]}), "
+            f"bytes_read {st.bytes_read}, bytes_staged {st.bytes_staged}")
+        out.append({"cell": cell, "backend": p.backend, "m": p.num_batches,
+                    "chunk": p.chunk, "kmax": p.kmax, "nnz": p.nnz,
+                    "step_size": p.cfg.step_size, "history": hist,
+                    "objective": r.objective, "epoch_s": bd["epoch_s"],
+                    "access_s_per_epoch": bd["access_s_per_epoch"],
+                    "h2d_s_per_epoch": bd["h2d_s_per_epoch"],
+                    "compute_s_per_epoch": bd["compute_s_per_epoch"],
+                    "bytes_read": st.bytes_read,
+                    "bytes_staged": st.bytes_staged})
+    if {**fe.LAUNCHES, **se.LAUNCHES} != before:
+        raise AssertionError("the sparse-csr backend launched a kernel")
+    return out
+
+
+def csr_matrix(api, sparse, dataset, root):
+    """The 15 constant-step cells at l = 2,000, n = 4,096, density 0.01,
+    b = 100: ``sparse-csr`` on the CSR corpus against ``streamed-eager`` on
+    the same corpus densified (the generator's columns are distinct, so the
+    densified rows are the CSR rows), both at the CSR plan's step; final w
+    at rtol 1e-4 / atol 1e-6."""
+    l, n, b = 2000, 4096, 100
+    csr_p = root / f"csr_matrix_{l}x{n}.csr"
+    dense_p = root / f"csr_matrix_{l}x{n}_dense.bin"
+    sparse.synth_sparse_classification(csr_p, rows=l, features=n,
+                                       density=0.01, seed=1)
+    X, y = sparse.open_csr_corpus(csr_p).densify()
+    dataset.write_corpus(dense_p, np.hstack([X, y[:, None]]), "rows")
+    out = []
+    t0 = time.perf_counter()
+    for solver in api.SOLVERS:
+        for scheme in api.SCHEMES:
+            kw = dict(solver=solver, scheme=scheme, batch_size=b, epochs=2,
+                      record_objective=False)
+            ps = api.plan(api.ExperimentSpec(api.DataSource.corpus(csr_p),
+                                             **kw))
+            pd = api.plan(api.ExperimentSpec(
+                api.DataSource.corpus(dense_p), placement="streamed",
+                step_size=ps.cfg.step_size, **kw))
+            if (ps.backend, pd.backend) != (api.SPARSE_CSR,
+                                            api.STREAMED_EAGER):
+                raise AssertionError(f"planned {ps.backend}, {pd.backend}")
+            ws, wd = api.execute(ps).w, api.execute(pd).w
+            dw = np.abs(ws - wd)
+            cell = f"{solver}/{scheme}/constant"
+            if not np.allclose(ws, wd, rtol=1e-4, atol=1e-6):
+                raise AssertionError(f"csr {cell}: sparse-csr and densified "
+                                     f"streamed-eager w differ by max |dw| "
+                                     f"{dw.max():.3e}")
+            out.append({"cell": cell, "max_abs_dw": float(dw.max()),
+                        "max_rel_dw": float(np.max(dw / (np.abs(wd)
+                                                         + 1e-6)))})
+    log(f"  15 cells: sparse-csr w within rtol 1e-4 of densified "
+        f"streamed-eager (worst relative difference "
+        f"{max(c['max_rel_dw'] for c in out):.3e}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
-                    help="small corpus and matrix, few timing runs")
+                    help="small corpora and matrix, few timing runs")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "artifacts" / "chip_smoke",
                     help="directory for chip_smoke.json (the details)")
@@ -432,31 +827,45 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import api
-    from repro_torch.data import dataset
-    from repro_torch.kernels import _build, fused_erm as fe
+    from repro_torch.data import dataset, sparse
+    from repro_torch.kernels import _build, fused_erm as fe, sparse_erm as se
 
     t_start = time.perf_counter()
     rows, n = (200_000, 18) if args.quick else (5_000_000, 18)
+    csr_rows = 20_000 if args.quick else 100_000
     mrows = 2_000 if args.quick else 20_000
     reps = 10 if args.quick else 50
     smi = smi_line()
     log(f"[1] device: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    _build.load("fused_erm")
+    _build.load_all("fused_erm", "sparse_erm")
     build_s = time.perf_counter() - t0
-    log(f"  built fused_erm in {build_s:.1f} s")
-    for line in _build.BUILD_LOGS["fused_erm"].splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+    log(f"  built fused_erm and sparse_erm in {build_s:.1f} s")
+    for name in ("fused_erm", "sparse_erm"):
+        for line in _build.BUILD_LOGS[name].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}:", line.strip())
 
-    path = ROOT / "artifacts" / "chip_smoke" / f"susy_synth_{rows}x{n}.bin"
+    root = ROOT / "artifacts" / "chip_smoke"
+    path = root / f"susy_synth_{rows}x{n}.bin"
     t0 = time.perf_counter()
     if not path.exists():
         dataset.synth_erm_corpus(path, rows=rows, features=n, seed=0)
     corpus_s = time.perf_counter() - t0
     log(f"  corpus {path.name}: {rows} x {n} f32 + labels in "
         f"{corpus_s:.1f} s")
+    csr_path = root / f"csr_synth_{csr_rows}x{CSR_FEATURES}.csr"
+    t0 = time.perf_counter()
+    if not (csr_path / "meta.json").exists():
+        sparse.synth_sparse_classification(
+            csr_path, rows=csr_rows, features=CSR_FEATURES,
+            density=CSR_DENSITY, seed=0)
+    csr_s = time.perf_counter() - t0
+    csr = sparse.open_csr_corpus(csr_path)
+    log(f"  corpus {csr_path.name}: {csr.rows} x {csr.features}, nnz "
+        f"{csr.nnz}, kmax {csr.kmax}, {csr.meta.nbytes / 1e6:.1f} MB in "
+        f"{csr_s:.1f} s")
 
     log("[2] kernels against their plain versions")
     mm, _ = dataset.open_corpus(path)
@@ -485,29 +894,66 @@ def main(argv=None) -> int:
                 f"{t['bound_ms']:.6f} ({t['bound_by']})")
     del Xm, ym
     torch.cuda.empty_cache()
+
+    log("[2b] the sparse kernels on the CSR corpus")
+    t0 = time.perf_counter()
+    dev = se.csr_to_device(csr, batch_size=B)
+    torch.cuda.synchronize()
+    log(f"  csr_to_device: {time.perf_counter() - t0:.2f} s")
+    sparse_launches, kernel_path = sparse_kernel_path(
+        torch, api, se, dev, csr_path, csr.rows, csr.features)
+    check_sparse_kernels(torch, se, sparse, dev, csr.rows, csr.features,
+                         root, errs)
+    sparse_timing = time_sparse_kernels(torch, se, dev, csr, csr.rows,
+                                        csr.features, reps)
+    for name, t in sparse_timing.items():
+        lib = "-" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+        log(f"  csr {name}: {t['ms']:.4f} ms device, {t['host_ms']:.4f} ms "
+            f"per call on the host, plain {t['plain_ms']:.4f}, library "
+            f"{lib}, bound {t['bound_ms']:.6f} ({t['bound_by']}), "
+            f"{t['nnz_per_batch']:.0f} nonzeros a batch")
+    del dev
+    torch.cuda.empty_cache()
     fe.reset_launches()     # the comparisons above do not count
+    se.reset_launches()
 
     log("[3] main path: plan() -> execute() at full size")
     cells, launches, streamed = main_path(api, fe, path, rows, n)
 
+    log("[3b] the CSR path: plan() -> execute() on sparse-csr at full size")
+    csr_cells = csr_main_path(api, fe, se, csr_path)
+
     log("[4] the 45-cell matrix, fused against eager")
     mcells = matrix(torch, api, fe, mrows, n)
 
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[name], "launches": launches[name],
-                "max_abs_err": errs[name], "ms": timing[name]["ms"],
-                "plain_ms": timing[name]["plain_ms"],
-                "bound_ms": timing[name]["bound_ms"],
-                "bound_by": timing[name]["bound_by"],
-                "library_ms": timing[name]["library_ms"]}
-               for name in REPLACES]
+    log("[4b] the 15 CSR cells, sparse-csr against densified streamed-eager")
+    csr_mcells = csr_matrix(api, sparse, dataset, root)
+
+    def record(name, source, replaces, count, t):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": count,
+                "max_abs_err": errs[name], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+
+    kernels = ([record(k, SOURCE, r, launches[k], timing[k])
+                for k, r in REPLACES.items()]
+               + [record(k, SPARSE_SOURCE, r, sparse_launches[k],
+                         sparse_timing[k])
+                  for k, r in SPARSE_REPLACES.items()])
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "torch": torch.__version__, "quick": args.quick,
         "build_s": build_s, "corpus": [rows, n], "corpus_s": corpus_s,
-        "timing_main": timing, "timing_wide_4096": wide, "max_abs_err": errs,
+        "csr_corpus": {"rows": csr.rows, "features": csr.features,
+                       "nnz": csr.nnz, "kmax": csr.kmax,
+                       "nbytes": csr.meta.nbytes, "generate_s": csr_s},
+        "timing_main": timing, "timing_wide_4096": wide,
+        "timing_sparse": sparse_timing, "max_abs_err": errs,
         "cells": cells, "launches": launches, "streamed": streamed,
-        "matrix_rows": mrows, "matrix": mcells,
+        "sparse_kernel_path": kernel_path,
+        "sparse_launches": sparse_launches, "csr_cells": csr_cells,
+        "matrix_rows": mrows, "matrix": mcells, "csr_matrix": csr_mcells,
         "total_s": time.perf_counter() - t_start}, indent=2) + "\n")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,8 @@
 """repro_torch — the PyTorch/CUDA port of :mod:`repro`, for NVIDIA Hopper.
 
 The JAX package ``repro`` is the reference; this package computes the same
-things with PyTorch tensors, and its hot path runs hand-written CUDA kernels
-(:mod:`repro_torch.kernels.fused_erm`).  It imports neither JAX nor anything
+things with PyTorch tensors, and its kernels are hand-written CUDA
+(:mod:`repro_torch.kernels.fused_erm`, :mod:`repro_torch.kernels.sparse_erm`).  It imports neither JAX nor anything
 of ``repro``.
 
 The reference is strict float32, so importing the package turns TF32 off for

@@ -15,20 +15,23 @@ reference's ``repro.api``.
 """
 from .core.experiment import (  # noqa: F401
     ARRAYS, AUTO, BACKENDS, CSR, DENSE, EAGER, FUSED, GATHER, PSUM, RESIDENT,
-    RESIDENT_EAGER, RESIDENT_FUSED, STREAMED, STREAMED_EAGER, DataSource,
-    ExecutionPlan, ExperimentSpec, PlanError, RunResult, execute, plan,
-    resume_from, run_experiment)
+    RESIDENT_EAGER, RESIDENT_FUSED, SPARSE_CSR, STREAMED, STREAMED_EAGER,
+    DataSource, ExecutionPlan, ExperimentSpec, PlanError, RunResult, execute,
+    plan, resume_from, run_experiment)
 from .core.erm import LOSSES  # noqa: F401
 from .core.samplers import CYCLIC, RANDOM, SCHEMES, SYSTEMATIC  # noqa: F401
 from .core.schemes import Cyclic, Random, Scheme, Systematic  # noqa: F401
 from .core.solvers import CONSTANT, LINE_SEARCH, SOLVERS  # noqa: F401
 from .core.step_rules import LS_MODES, SEQUENTIAL, VECTORIZED  # noqa: F401
+from .data.sparse import (  # noqa: F401
+    ingest_libsvm, open_csr_corpus, synth_sparse_classification,
+    write_csr_corpus)
 from .obs import Timeline, TracePolicy, Tracer  # noqa: F401
 
 __all__ = [
     "ARRAYS", "AUTO", "BACKENDS", "CSR", "DENSE", "EAGER", "FUSED", "GATHER",
     "LOSSES", "PSUM", "RESIDENT", "RESIDENT_EAGER", "RESIDENT_FUSED",
-    "STREAMED", "STREAMED_EAGER",
+    "SPARSE_CSR", "STREAMED", "STREAMED_EAGER",
     "CYCLIC", "RANDOM", "SCHEMES", "SYSTEMATIC",
     "Cyclic", "Random", "Scheme", "Systematic",
     "CONSTANT", "LINE_SEARCH", "SOLVERS",
@@ -36,4 +39,6 @@ __all__ = [
     "DataSource", "ExecutionPlan", "ExperimentSpec", "PlanError",
     "RunResult", "Timeline", "TracePolicy", "Tracer",
     "execute", "plan", "resume_from", "run_experiment",
+    "ingest_libsvm", "open_csr_corpus", "synth_sparse_classification",
+    "write_csr_corpus",
 ]

@@ -10,6 +10,7 @@ paths share one loss derivative.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Tuple, Union
 
@@ -57,6 +58,19 @@ def dloss(loss: str, z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown loss {loss!r}")
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """Deterministic algorithms on for the enclosed ops, then the caller's
+    setting back."""
+    prev = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev, warn_only=warn)
+
+
 @dataclasses.dataclass(frozen=True)
 class ERMProblem:
     """Static description of an ERM instance. X: (l, n) float, y: (l,) float."""
@@ -100,6 +114,48 @@ class ERMProblem:
         reference takes by autodiff of :meth:`data_objective`."""
         s = dloss(self.loss, Xb @ w, yb) / Xb.shape[0]
         return s @ Xb
+
+    # ---- sparse (padded-ELL) mini-batch, same subproblem ----------------
+    # A CSR mini-batch arrives as (cols, vals): (b, kmax) int32/float32 with
+    # zero-valued padding (repro_torch.data.sparse.SparseBatch).  The margin
+    # is a gather, the gradient the matching scatter-add, written out.
+
+    def ell_margins(self, w: torch.Tensor, cols: torch.Tensor,
+                    vals: torch.Tensor) -> torch.Tensor:
+        """z_i = x_i . w for padded-ELL rows (padding vals are 0)."""
+        wc = w.index_select(0, cols.reshape(-1)).reshape(cols.shape)
+        return torch.sum(vals * wc, dim=-1)
+
+    def ell_data_objective(self, w: torch.Tensor, cols: torch.Tensor,
+                           vals: torch.Tensor,
+                           yb: torch.Tensor) -> torch.Tensor:
+        return self.mean_margin_loss(self.ell_margins(w, cols, vals), yb)
+
+    def ell_batch_objective(self, w: torch.Tensor, cols: torch.Tensor,
+                            vals: torch.Tensor,
+                            yb: torch.Tensor) -> torch.Tensor:
+        return (self.ell_data_objective(w, cols, vals, yb)
+                + 0.5 * self.reg * torch.dot(w, w))
+
+    def ell_batch_grad_data(self, w: torch.Tensor, cols: torch.Tensor,
+                            vals: torch.Tensor,
+                            yb: torch.Tensor) -> torch.Tensor:
+        """``(1/b) scatter(cols, s_i * vals)``, ``s = dloss(z, yb)`` — the
+        gradient the reference takes by autodiff of the gather.
+
+        The scatter is ``index_put_(accumulate=True)`` with deterministic
+        algorithms switched on for this call only: that is the sort-based
+        kernel, which adds each column's contributions in their order in
+        ``cols``, so the same batch gives the same bits on every run (float
+        atomics, as in ``index_add_`` on CUDA, add in whatever order the
+        hardware picks).  The switch is scoped so the rest of the process
+        keeps its own setting."""
+        s = dloss(self.loss, self.ell_margins(w, cols, vals), yb) / yb.shape[0]
+        contrib = (s[:, None] * vals).reshape(-1)
+        g = torch.zeros_like(w)
+        with _deterministic():
+            g.index_put_((cols.reshape(-1),), contrib, accumulate=True)
+        return g
 
     # ---- theory constants (Assumptions 1 & 2) ---------------------------
     def lipschitz(self, X: torch.Tensor) -> torch.Tensor:

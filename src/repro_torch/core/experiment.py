@@ -6,9 +6,10 @@
     result = execute(plan(spec))          # on the card
     result = execute(plan(spec, device="cpu"))
 
-* :func:`plan` lowers a spec into an :class:`ExecutionPlan` for one of three
+* :func:`plan` lowers a spec into an :class:`ExecutionPlan` for one of four
   backends — ``streamed-eager`` (the host pipeline stages chunks of batches
-  to the device), ``resident-eager`` and ``resident-fused`` (the whole
+  to the device), ``sparse-csr`` (the same for a CSR corpus, as padded-ELL
+  batches), ``resident-eager`` and ``resident-fused`` (the whole dense
   corpus on the device; fused runs the CUDA kernels) — and rejects what
   cannot run with a :class:`PlanError`.  The plan records its device; the
   default is the card, and a host without CUDA is refused rather than
@@ -24,10 +25,15 @@ span, and staged to the device through the H2D lane; the reference draws
 it in-graph with ``jax.random``.  Device work inside a timed span ends in
 ``torch.cuda.synchronize``.
 
+A CSR corpus runs on ``sparse-csr`` only, as in the reference: its
+snapshot gradients and per-epoch objectives are the reference's float64
+host passes (``repro_torch.data.sparse``), and ``kernel='fused'`` or
+``placement='resident'`` raise the reference's PlanErrors.
+
 Not in the port yet, each refused by :func:`plan` with a PlanError: device
-meshes (``mesh=``), durable runs (``checkpoint=``), CSR corpora, adaptive
-schemes, and the plan audit; :func:`resume_from` and
-:meth:`RunResult.from_json` likewise.
+meshes (``mesh=``), durable runs (``checkpoint=``), adaptive schemes, and
+the plan audit; :func:`resume_from` and :meth:`RunResult.from_json`
+likewise.
 """
 from __future__ import annotations
 
@@ -60,9 +66,10 @@ ARRAYS, DENSE, CSR = "arrays", "dense", "csr"
 
 # ---- backends the planner can select ---------------------------------------
 STREAMED_EAGER = "streamed-eager"    # DataPipeline + chunked epoch engine
+SPARSE_CSR = "sparse-csr"            # SparsePipeline + sparse chunked engine
 RESIDENT_EAGER = "resident-eager"    # resident corpus, gathered batches
 RESIDENT_FUSED = "resident-fused"    # resident corpus, fused CUDA kernels
-BACKENDS = (STREAMED_EAGER, RESIDENT_EAGER, RESIDENT_FUSED)
+BACKENDS = (STREAMED_EAGER, SPARSE_CSR, RESIDENT_EAGER, RESIDENT_FUSED)
 
 # resident-placement budget when the device reports no memory size (the
 # CPU): stage corpora up to this size, stream anything larger
@@ -87,8 +94,9 @@ class PlanError(ValueError):
 class DataSource:
     """Where the training data lives: :meth:`arrays` for in-memory
     ``(X, y)`` (numpy or torch), :meth:`corpus` for an on-disk corpus (a
-    dense memmap from ``dataset.write_corpus``/``synth_erm_corpus``; a CSR
-    directory is recognised and refused by :func:`plan`)."""
+    dense memmap from ``dataset.write_corpus``/``synth_erm_corpus`` or a
+    CSR directory from ``sparse.write_csr_corpus``/``ingest_libsvm``/
+    ``synth_sparse_classification``)."""
     kind: str                                   # ARRAYS | DENSE | CSR
     path: Optional[Path] = None
     X: Optional[object] = dataclasses.field(default=None, compare=False,
@@ -163,13 +171,15 @@ class ExecutionPlan:
     backend: str          # one of BACKENDS
     placement: str        # STREAMED | RESIDENT
     kernel: str           # EAGER | FUSED
-    fmt: str              # DENSE (ARRAYS lowers to DENSE)
+    fmt: str              # DENSE | CSR (ARRAYS lowers to DENSE)
     cfg: SolverConfig     # resolved solver config (step size, flags)
     rows: int
     features: int
     num_batches: int      # m, batches per epoch
     chunk: int            # K, batches per device call (m when resident)
     corpus_bytes: int
+    kmax: int = 0         # densest CSR row (sparse only)
+    nnz: int = 0          # stored nonzeros (sparse only)
     device: str = "cuda"
     why: Tuple[str, ...] = ()
 
@@ -191,7 +201,9 @@ class ExecutionPlan:
         lines = [
             f"backend   : {self.backend} on {self.device}",
             f"data      : {self.fmt} {self.rows}x{self.features} "
-            f"({self.corpus_bytes / 1e6:.1f} MB)",
+            f"({self.corpus_bytes / 1e6:.1f} MB"
+            + (f", nnz={self.nnz}, kmax={self.kmax}" if self.fmt == CSR
+               else "") + ")",
             f"method    : {self.cfg.solver}/{self.step_rule} under "
             f"{self.scheme_name} sampling, step={self.cfg.step_size:.3g}",
             f"epoch     : m={self.num_batches} batches of "
@@ -207,6 +219,8 @@ class _Probe:
     rows: int
     features: int
     nbytes: int
+    kmax: int = 0
+    nnz: int = 0
 
 
 def _probe(data: DataSource) -> _Probe:
@@ -217,7 +231,10 @@ def _probe(data: DataSource) -> _Probe:
     if data.path is None:
         raise PlanError("corpus DataSource has no path")
     if data.kind == CSR:
-        raise PlanError("CSR corpora are " + _NOT_PORTED.format(9))
+        from ..data import sparse
+        csr = sparse.open_csr_corpus(data.path)
+        return _Probe(CSR, csr.rows, csr.features, csr.meta.nbytes,
+                      kmax=csr.kmax, nnz=csr.nnz)
     from ..data import dataset
     _, meta = dataset.open_corpus(data.path)
     return _Probe(DENSE, meta.rows, meta.row_dim - 1, meta.nbytes)
@@ -325,6 +342,14 @@ def plan(spec: ExperimentSpec, *, device=None,
                             "a DataSource.corpus(...) for streamed placement")
         placement = RESIDENT
         why.append("arrays are device-resident by construction")
+    elif probe.fmt == CSR:
+        if spec.placement == RESIDENT:
+            raise PlanError(
+                "resident placement stages a dense (l, n) corpus; CSR "
+                "corpora run the streamed sparse engine (sparse resident "
+                "mode is a ROADMAP follow-on)")
+        placement = STREAMED
+        why.append("CSR corpus → streamed sparse engine")
     elif spec.placement != AUTO:
         placement = spec.placement
         why.append(f"placement {placement!r} forced by spec")
@@ -341,8 +366,12 @@ def plan(spec: ExperimentSpec, *, device=None,
 
     # ---- kernel: fused vs eager ------------------------------------------
     from ..kernels import fused_erm
-    ok = spec.loss in fused_erm.LOSSES
-    reason = f"loss {spec.loss!r} has no fused kernel"
+    if probe.fmt == CSR:
+        ok, reason = False, ("fused kernels are dense-only; CSR corpora keep "
+                             "the sparse chunked engine")
+    else:
+        ok = spec.loss in fused_erm.LOSSES
+        reason = f"loss {spec.loss!r} has no fused kernel"
     if spec.kernel == FUSED:
         if not ok:
             raise PlanError(f"kernel='fused' rejected: {reason}")
@@ -382,11 +411,14 @@ def plan(spec: ExperimentSpec, *, device=None,
         chunk = max(1, min(spec.chunk, m))
         why.append(f"chunk K={chunk} forced by spec")
     else:
-        per_batch = spec.batch_size * (probe.features + 1) * 4
+        if probe.fmt == CSR:
+            per_batch = spec.batch_size * (probe.kmax * 8 + 4)
+        else:
+            per_batch = spec.batch_size * (probe.features + 1) * 4
         chunk = max(1, min(_CHUNK_BYTE_BUDGET // max(per_batch, 1), m))
 
     step_size = (spec.step_size if spec.step_size is not None
-                 else _auto_step_size(spec))
+                 else _auto_step_size(spec, probe))
     ls_mode = VECTORIZED if spec.ls_mode == AUTO else spec.ls_mode
     if spec.step_mode == LINE_SEARCH:
         why.append("line search lowers to the vectorized trial-ladder sweep "
@@ -403,8 +435,11 @@ def plan(spec: ExperimentSpec, *, device=None,
     cfg = SolverConfig(solver=spec.solver, step_mode=spec.step_mode,
                        step_size=step_size, ls_shrink=spec.ls_shrink,
                        ls_c=spec.ls_c, ls_max_iter=spec.ls_max_iter,
-                       ls_mode=ls_mode, use_fused=(kernel == FUSED))
-    if placement == RESIDENT:
+                       ls_mode=ls_mode, use_fused=(kernel == FUSED),
+                       sparse=(probe.fmt == CSR))
+    if probe.fmt == CSR:
+        backend = SPARSE_CSR
+    elif placement == RESIDENT:
         backend = RESIDENT_FUSED if kernel == FUSED else RESIDENT_EAGER
     else:
         backend = STREAMED_EAGER
@@ -412,14 +447,19 @@ def plan(spec: ExperimentSpec, *, device=None,
                          kernel=kernel, fmt=probe.fmt, cfg=cfg,
                          rows=probe.rows, features=probe.features,
                          num_batches=m, chunk=chunk,
-                         corpus_bytes=probe.nbytes, device=str(dev),
+                         corpus_bytes=probe.nbytes, kmax=probe.kmax,
+                         nnz=probe.nnz, device=str(dev),
                          why=tuple(why))
 
 
-def _auto_step_size(spec: ExperimentSpec) -> float:
+def _auto_step_size(spec: ExperimentSpec, probe: _Probe) -> float:
     """Paper §4.1 defaults: constant step = 1/L, line search starts at 1."""
     if spec.step_mode == LINE_SEARCH:
         return 1.0
+    if probe.fmt == CSR:
+        from ..data import sparse
+        return 1.0 / sparse.csr_lipschitz(spec.problem, sparse.open_csr_corpus(
+            spec.data.path))
     if spec.data.kind == ARRAYS:
         sample = np.asarray(spec.data.X[:_STEP_SAMPLE_ROWS], np.float32)
     else:
@@ -796,7 +836,10 @@ def _make_put(device: torch.device) -> Callable:
 
 def _execute_streamed(plan_: ExecutionPlan, resume: Optional[RunResult],
                       epochs: int, tracer: Tracer = NULL_TRACER) -> RunResult:
-    from ..data import dataset, pipeline as pipemod
+    """The ``streamed-eager`` and ``sparse-csr`` backends: one chunked loop
+    (:func:`_drive_chunked`) over a dense row stream or a CSR stream of
+    padded-ELL batches."""
+    from ..data import pipeline as pipemod
 
     spec, cfg = plan_.spec, plan_.cfg
     problem = spec.problem
@@ -811,39 +854,66 @@ def _execute_streamed(plan_: ExecutionPlan, resume: Optional[RunResult],
     pcfg = pipemod.PipelineConfig(corpus=spec.data.path, batch_size=b,
                                   sampling=spec.scheme, seed=spec.seed,
                                   prefetch=spec.prefetch)
-    mm, _ = dataset.open_corpus(spec.data.path)
-    pipe = pipemod.DataPipeline(pcfg, start_step=start_step, tracer=tracer)
+    if plan_.fmt == CSR:
+        from ..data import sparse
+        csr = sparse.open_csr_corpus(spec.data.path)
+        kmax = plan_.kmax
+        pipe = sparse.SparsePipeline(pcfg, start_step=start_step,
+                                     tracer=tracer)
+        # (cols, vals, y) of k ELL batches, in pinned host buffers
+        shapes = (((b, kmax), torch.int32), ((b, kmax), torch.float32),
+                  ((b,), torch.float32))
+
+        def fill(bufs, i, sb):
+            for buf, part in zip(bufs, (sb.cols, sb.vals, sb.y)):
+                buf[i].numpy()[:] = part
+
+        def full_grad_at(w, data_term_only=False):
+            # the reference's float64 host pass, so the snapshot keeps its bits
+            return torch.from_numpy(sparse.csr_full_grad(
+                problem, csr, w.cpu().numpy(),
+                data_term_only=data_term_only)).to(device)
+
+        def eval_obj(w):
+            return sparse.csr_objective(problem, csr, w.cpu().numpy())
+    else:
+        from ..data import dataset
+        mm, _ = dataset.open_corpus(spec.data.path)
+        pipe = pipemod.DataPipeline(pcfg, start_step=start_step,
+                                    tracer=tracer)
+        shapes = (((b, n), torch.float32), ((b,), torch.float32))
+
+        def fill(bufs, i, rows):
+            bufs[0][i].numpy()[:] = rows[:, :n]
+            bufs[1][i].numpy()[:] = rows[:, n]
+
+        def row_chunks():
+            for lo in range(0, plan_.rows, _EVAL_CHUNK):
+                rows = np.array(mm[lo:lo + _EVAL_CHUNK])   # writable copy
+                yield rows[:, :n], rows[:, n]
+
+        def full_grad_at(w, data_term_only=False):
+            return streaming_full_grad(problem, w, row_chunks(),
+                                       data_term_only=data_term_only)
+
+        def eval_obj(w):
+            total = 0.0
+            for Xc, yc in row_chunks():
+                total += float(problem.data_objective(
+                    w, torch.as_tensor(Xc, device=device),
+                    torch.as_tensor(yc, device=device))) * Xc.shape[0]
+            return (total / plan_.rows
+                    + 0.5 * problem.reg * float(torch.dot(w, w)))
 
     def alloc(k):
         # pinned host buffers: the stager's copy to the card is asynchronous
-        return (torch.empty((k, b, n), dtype=torch.float32, pin_memory=pin),
-                torch.empty((k, b), dtype=torch.float32, pin_memory=pin))
-
-    def fill(bufs, i, rows):
-        bufs[0][i].numpy()[:] = rows[:, :n]
-        bufs[1][i].numpy()[:] = rows[:, n]
-
-    def row_chunks():
-        for lo in range(0, plan_.rows, _EVAL_CHUNK):
-            rows = np.array(mm[lo:lo + _EVAL_CHUNK])   # writable copy
-            yield rows[:, :n], rows[:, n]
-
-    def full_grad_at(w, data_term_only=False):
-        return streaming_full_grad(problem, w, row_chunks(),
-                                   data_term_only=data_term_only)
-
-    def eval_obj(w):
-        total = 0.0
-        for Xc, yc in row_chunks():
-            total += float(problem.data_objective(
-                w, torch.as_tensor(Xc, device=device),
-                torch.as_tensor(yc, device=device))) * Xc.shape[0]
-        return total / plan_.rows + 0.5 * problem.reg * float(torch.dot(w, w))
+        return tuple(torch.empty((k,) + shape, dtype=dt, pin_memory=pin)
+                     for shape, dt in shapes)
 
     # warm the device (first kernels, allocator) outside the timed region
     dummy = init_state(cfg.solver, torch.zeros(n, device=device), m)
-    epoch_fn(dummy, torch.zeros((1, b, n), device=device),
-             torch.zeros((1, b), device=device),
+    epoch_fn(dummy, *(torch.zeros((1,) + shape, dtype=dt, device=device)
+                      for shape, dt in shapes),
              torch.zeros(1, dtype=torch.int32, device=device))
     _sync(device)
 

@@ -19,7 +19,8 @@ the reference's ``lax.scan`` has no counterpart the port needs):
   :func:`repro_torch.core.samplers.epoch_schedule`).  With
   ``cfg.use_fused`` every gradient and line-search margin comes from the
   fused CUDA kernels (:mod:`repro_torch.kernels.fused_erm`).
-* :func:`make_epoch_fn` — the chunked engine: K staged batches per call.
+* :func:`make_epoch_fn` — the chunked engine: K staged batches per call,
+  dense rows or (``cfg.sparse``) padded-ELL CSR batches.
 
 State is updated in place where the reference donates it: a SAG/SAGA step
 writes its gradient into row ``j`` of the ``(m, n)`` table instead of
@@ -51,6 +52,7 @@ class SolverConfig(NamedTuple):
     ls_c: float = 1e-4            # Armijo constant
     ls_max_iter: int = 25
     use_fused: bool = False       # fused gather+grad CUDA kernels
+    sparse: bool = False          # CSR corpus: padded-ELL batches, no densify
     ls_mode: str = VECTORIZED     # trial-ladder sweep | "sequential" ref
 
 
@@ -167,6 +169,24 @@ def batch_step(problem: ERMProblem, cfg: SolverConfig, state: SolverState,
     return new_state._replace(w=w - alpha * v)
 
 
+def sparse_batch_step(problem: ERMProblem, cfg: SolverConfig,
+                      state: SolverState, cols: torch.Tensor,
+                      vals: torch.Tensor, yb: torch.Tensor,
+                      j: Index) -> SolverState:
+    """One solver update from a padded-ELL CSR batch — the corpus is never
+    densified.  ``(cols, vals)``: (b, kmax) as in
+    :class:`repro_torch.data.sparse.SparseBatch`; line search backtracks on
+    the sparse batch objective."""
+    w = state.w
+    gd = problem.ell_batch_grad_data(w, cols, vals, yb)
+    gd_snap = (problem.ell_batch_grad_data(state.snapshot, cols, vals, yb)
+               if _needs_snapshot(cfg.solver) else None)
+    v, g, new_state = _solver_direction(problem, cfg, state, j, gd, gd_snap)
+    alpha = step_rules.from_config(cfg).pick(
+        step_rules.ell_probe(problem, cols, vals, yb), w, v, g)
+    return new_state._replace(w=w - alpha * v)
+
+
 def fused_batch_step(problem: ERMProblem, cfg: SolverConfig,
                      state: SolverState, X: torch.Tensor, y: torch.Tensor,
                      j: Index, *, start=None, idx=None,
@@ -229,6 +249,11 @@ def resident_epoch(problem: ERMProblem, cfg: SolverConfig, state: SolverState,
     is an argument, and a schedule entry is handed to the kernels as a
     device pointer — never read back to the host.
     """
+    if cfg.sparse:
+        raise ValueError(
+            "resident_epoch is the dense device-resident loop; CSR corpora "
+            "go through make_epoch_fn (padded-ELL chunks) or the "
+            "repro_torch.kernels.sparse_erm kernels")
     state = resident_epoch_begin(problem, cfg, state, X, y)
     contiguous = schedule.dim() == 1
     l = X.shape[0]
@@ -258,12 +283,28 @@ def resident_epoch(problem: ERMProblem, cfg: SolverConfig, state: SolverState,
 def make_epoch_fn(problem: ERMProblem, cfg: SolverConfig):
     """Chunked epoch engine: ``(state, Xc, yc, js) -> state`` over K staged
     mini-batches (``Xc: (K, b, n)``, ``yc: (K, b)``, ``js: (K,)`` table
-    slots), one :func:`batch_step` per batch."""
+    slots), one :func:`batch_step` per batch.
+
+    With ``cfg.sparse`` the chunk is padded-ELL CSR and the signature is
+    ``(state, colsc, valsc, yc, js)`` with ``colsc: (K, b, kmax)`` int32 and
+    ``valsc: (K, b, kmax)`` float32, one :func:`sparse_batch_step` per
+    batch."""
     if cfg.use_fused:
         raise ValueError(
             "use_fused applies to the device-resident epoch: the chunked "
             "engine consumes staged batches, which are materialized by "
             "construction — there is nothing left to fuse")
+
+    if cfg.sparse:
+        def sparse_epoch_chunk(state: SolverState, colsc: torch.Tensor,
+                               valsc: torch.Tensor, yc: torch.Tensor,
+                               js: torch.Tensor) -> SolverState:
+            js = js.long()
+            for i in range(colsc.shape[0]):
+                state = sparse_batch_step(problem, cfg, state, colsc[i],
+                                          valsc[i], yc[i], js[i])
+            return state
+        return sparse_epoch_chunk
 
     def epoch_chunk(state: SolverState, Xc: torch.Tensor, yc: torch.Tensor,
                     js: torch.Tensor) -> SolverState:

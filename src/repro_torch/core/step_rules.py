@@ -20,8 +20,8 @@ the sequential and vectorized rules return the same rung bit for bit
 round the other way).
 
 Every backend presents its batch through a :class:`BatchProbe`: dense eager
-batches (:func:`dense_probe`) and the fused CUDA margin kernels
-(:func:`fused_probe`).
+batches (:func:`dense_probe`), padded-ELL CSR batches (:func:`ell_probe`)
+and the fused CUDA margin kernels (:func:`fused_probe`).
 """
 from __future__ import annotations
 
@@ -53,6 +53,16 @@ def dense_probe(problem: ERMProblem, Xb: torch.Tensor,
     return BatchProbe(
         objective=lambda u: problem.batch_objective(u, Xb, yb),
         margins=lambda u: Xb @ u,
+        labels=yb, mean_loss=problem.mean_margin_loss, reg=problem.reg)
+
+
+def ell_probe(problem: ERMProblem, cols: torch.Tensor, vals: torch.Tensor,
+              yb: torch.Tensor) -> BatchProbe:
+    """Probe over a padded-ELL CSR batch (the ``sparse-csr`` engine) —
+    margins cost O(b * kmax), the corpus is never densified."""
+    return BatchProbe(
+        objective=lambda u: problem.ell_batch_objective(u, cols, vals, yb),
+        margins=lambda u: problem.ell_margins(u, cols, vals),
         labels=yb, mean_loss=problem.mean_margin_loss, reg=problem.reg)
 
 

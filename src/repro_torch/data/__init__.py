@@ -1,1 +1,1 @@
-"""Dense corpus files and the host data pipeline of the port."""
+"""Dense and CSR corpus files and the host data pipelines of the port."""

@@ -1,0 +1,570 @@
+"""Sparse (CSR) corpus format, LIBSVM ingest, and the CSR-aware pipeline.
+
+A numpy copy of ``repro.data.sparse``: it writes and reads the same corpus
+directories byte for byte, yields the same padded-ELL batches, and books the
+same ``AccessStats.bytes_read``.  The paper's biggest wins (up to 6x) are on
+sparse datasets (news20, rcv1, real-sim) where a data point is a handful of
+(index, value) pairs: random sampling pays a seek per ROW SEGMENT while
+cyclic/systematic sampling reads ONE contiguous ``[indptr[s], indptr[s+b])``
+range of the indices/values arrays.
+
+* **On-disk CSR corpus** — a directory of four flat memmaps::
+
+      corpus.csr/
+        indptr.bin   int64   (rows+1,)  row segment boundaries
+        indices.bin  int32   (nnz,)     column ids, row-major
+        values.bin   float32 (nnz,)     nonzero values, row-major
+        labels.bin   float32 (rows,)    y (classification: {-1, +1})
+        meta.json    CorpusMeta(fmt="csr", nnz=..., max_row_nnz=...)
+
+  Contiguous ROWS are contiguous BYTES in indices/values — exactly the
+  property CS/SS exploit and RS forfeits.
+
+* **Ingest** — :func:`ingest_libsvm` streams LIBSVM text (``label i:v ...``)
+  into the format; :func:`synth_sparse_classification` generates synthetic
+  corpora at paper-like densities (news20 ~0.03%, rcv1 ~0.2% nnz).
+
+* **Mini-batches** — :class:`SparsePipeline` mirrors :class:`DataPipeline`
+  (same samplers, same checkpointable two-integer state) but reads CSR row
+  segments and yields padded-ELL :class:`SparseBatch` tuples with static
+  shapes ``(b, kmax)`` (kmax = densest corpus row).  ``AccessStats.bytes_read``
+  counts the indices + values + indptr + label bytes actually touched —
+  nnz-proportional, not ``b * n``.
+
+* **Full-corpus helpers** — :func:`csr_full_grad`, :func:`csr_objective`,
+  :func:`csr_block_losses` and :func:`csr_lipschitz` stream the corpus in
+  float64 on the host, as the reference does: the SVRG/SAAG-II snapshot
+  gradient and the per-epoch objective keep the reference's bits.  SciPy
+  accelerates them when available; a pure-numpy ``bincount`` path keeps the
+  module dependency-free otherwise.
+
+Host-side numpy throughout; device staging for the CUDA kernels lives in
+``repro_torch.kernels.sparse_erm``.
+
+``CSRCorpus.densify`` ASSIGNS each stored value, so a column repeated within
+a row keeps its last value, while the ELL batches and the kernels ADD the
+values — copied from the reference as it is.
+"""
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+from typing import IO, NamedTuple, Optional, Tuple
+
+import numpy as np
+
+try:                       # optional accelerator for the streamed helpers
+    import scipy.sparse as _scipy_sparse
+except ImportError:        # pure-numpy fallback below
+    _scipy_sparse = None
+
+from ..core import schemes
+from ..core.erm import LOGISTIC, SMOOTH_HINGE, SQUARE
+from ..obs import ACCESS, CONVERT, NULL_TRACER
+from .dataset import CorpusMeta, host_shard
+from .pipeline import AccessStats, PipelineConfig, PrefetchPipeline
+
+CSR_KIND = "sparse_rows"
+
+_INDPTR, _INDICES, _VALUES, _LABELS = ("indptr.bin", "indices.bin",
+                                       "values.bin", "labels.bin")
+
+
+# ---------------------------------------------------------------------------
+# on-disk format
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CSRCorpus:
+    """Opened CSR corpus: four read-only memmaps + metadata."""
+    indptr: np.memmap      # (rows+1,) int64
+    indices: np.memmap     # (nnz,)   int32
+    values: np.memmap      # (nnz,)   float32
+    labels: np.memmap      # (rows,)  float32
+    meta: CorpusMeta
+
+    @property
+    def rows(self) -> int:
+        return self.meta.rows
+
+    @property
+    def features(self) -> int:
+        return self.meta.row_dim
+
+    @property
+    def nnz(self) -> int:
+        return self.meta.nnz
+
+    @property
+    def kmax(self) -> int:
+        """Densest row — sizes the ELL padding and the staged tail padding."""
+        return max(1, self.meta.max_row_nnz)
+
+    @property
+    def density(self) -> float:
+        return self.nnz / max(1, self.rows * self.features)
+
+    def densify(self, lo: int = 0, hi: Optional[int] = None,
+                ) -> Tuple[np.ndarray, np.ndarray]:
+        """Dense ``(X, y)`` for rows [lo, hi) — tests / parity oracles only.
+        A column repeated within a row keeps its LAST value (assignment)."""
+        hi = self.rows if hi is None else hi
+        X = np.zeros((hi - lo, self.features), np.float32)
+        ptr = np.asarray(self.indptr[lo:hi + 1])
+        for i in range(hi - lo):
+            s, e = ptr[i], ptr[i + 1]
+            X[i, np.asarray(self.indices[s:e])] = self.values[s:e]
+        return X, np.asarray(self.labels[lo:hi])
+
+
+def _meta_path(path: Path) -> Path:
+    return Path(path) / "meta.json"
+
+
+def write_csr_corpus(path: Path, *, indptr: np.ndarray, indices: np.ndarray,
+                     values: np.ndarray, labels: np.ndarray,
+                     features: int) -> CorpusMeta:
+    """Write in-memory CSR arrays as a corpus directory."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    rows = len(indptr) - 1
+    lens = np.diff(indptr)
+    meta = CorpusMeta(CSR_KIND, rows, features, "float32", fmt="csr",
+                      nnz=int(indptr[-1]),
+                      max_row_nnz=int(lens.max()) if rows else 0)
+    for name, arr, dt in ((_INDPTR, indptr, np.int64),
+                          (_INDICES, indices, np.int32),
+                          (_VALUES, values, np.float32),
+                          (_LABELS, labels, np.float32)):
+        np.asarray(arr, dt).tofile(path / name)
+    _meta_path(path).write_text(meta.to_json())
+    return meta
+
+
+def open_csr_corpus(path: Path) -> CSRCorpus:
+    path = Path(path)
+    meta = CorpusMeta.from_json(_meta_path(path).read_text())
+    if meta.fmt != "csr":
+        raise ValueError(f"{path} is not a CSR corpus (fmt={meta.fmt!r})")
+    mm = lambda name, dt, n: np.memmap(path / name, dtype=dt, mode="r",
+                                       shape=(n,))
+    return CSRCorpus(mm(_INDPTR, np.int64, meta.rows + 1),
+                     mm(_INDICES, np.int32, max(1, meta.nnz)),
+                     mm(_VALUES, np.float32, max(1, meta.nnz)),
+                     mm(_LABELS, np.float32, meta.rows), meta)
+
+
+class _CSRWriter:
+    """Streamed CSR writer: appends row segments, tracks indptr/meta."""
+
+    def __init__(self, path: Path):
+        self.path = Path(path)
+        self.path.mkdir(parents=True, exist_ok=True)
+        self._files: Tuple[IO, IO, IO] = tuple(
+            open(self.path / n, "wb") for n in (_INDICES, _VALUES, _LABELS))
+        self._indptr = [0]
+        self._max_row_nnz = 0
+
+    def append(self, indices: np.ndarray, values: np.ndarray,
+               labels: np.ndarray, row_lens: np.ndarray):
+        fi, fv, fl = self._files
+        np.asarray(indices, np.int32).tofile(fi)
+        np.asarray(values, np.float32).tofile(fv)
+        np.asarray(labels, np.float32).tofile(fl)
+        base = self._indptr[-1]
+        self._indptr.extend((base + np.cumsum(row_lens)).tolist())
+        if len(row_lens):
+            self._max_row_nnz = max(self._max_row_nnz, int(max(row_lens)))
+
+    def close(self):
+        for f in self._files:
+            if not f.closed:
+                f.close()
+
+    def finish(self, features: int) -> CorpusMeta:
+        self.close()
+        indptr = np.asarray(self._indptr, np.int64)
+        indptr.tofile(self.path / _INDPTR)
+        meta = CorpusMeta(CSR_KIND, len(indptr) - 1, features, "float32",
+                          fmt="csr", nnz=int(indptr[-1]),
+                          max_row_nnz=self._max_row_nnz)
+        _meta_path(self.path).write_text(meta.to_json())
+        return meta
+
+
+def ingest_libsvm(src: Path, out: Path, *, features: Optional[int] = None,
+                  zero_based: bool = False,
+                  chunk_rows: int = 8192) -> CorpusMeta:
+    """Stream a LIBSVM-format text file into a CSR corpus directory.
+
+    Lines are ``label idx:val idx:val ...``; indices are 1-based unless
+    ``zero_based``.  ``features`` fixes the dimensionality (needed when the
+    trailing columns of the dataset are all-zero); default is max index + 1.
+    Labels are stored as given — the classification losses expect {-1, +1}.
+    """
+    writer = _CSRWriter(out)
+    max_col = -1
+    idx_buf, val_buf, lab_buf, len_buf = [], [], [], []
+    off = 0 if zero_based else 1
+
+    def flush():
+        nonlocal idx_buf, val_buf, lab_buf, len_buf
+        if lab_buf:
+            writer.append(np.concatenate(idx_buf) if idx_buf else
+                          np.zeros(0, np.int32),
+                          np.concatenate(val_buf) if val_buf else
+                          np.zeros(0, np.float32),
+                          np.asarray(lab_buf, np.float32),
+                          np.asarray(len_buf, np.int64))
+            idx_buf, val_buf, lab_buf, len_buf = [], [], [], []
+
+    try:
+        with open(src) as fh:
+            for line in fh:
+                parts = line.split()
+                if not parts or parts[0].startswith("#"):
+                    continue
+                cols = np.array([int(p[:p.index(":")]) - off
+                                 for p in parts[1:]], np.int32)
+                vals = np.array([float(p[p.index(":") + 1:])
+                                 for p in parts[1:]], np.float32)
+                if cols.size:
+                    order = np.argsort(cols, kind="stable")  # CSR: sorted rows
+                    cols, vals = cols[order], vals[order]
+                    max_col = max(max_col, int(cols[-1]))
+                    # fail FAST on a bad bound, not after ingesting the file
+                    if features is not None and max_col >= features:
+                        raise ValueError(
+                            f"feature index {max_col} >= features={features}")
+                lab_buf.append(float(parts[0]))
+                idx_buf.append(cols)
+                val_buf.append(vals)
+                len_buf.append(cols.size)
+                if len(lab_buf) >= chunk_rows:
+                    flush()
+        flush()
+        return writer.finish(features if features is not None
+                             else max_col + 1)
+    except BaseException:
+        writer.close()   # don't leak handles over a partial corpus dir
+        raise
+
+
+def synth_sparse_classification(path: Path, *, rows: int, features: int,
+                                density: float = 1e-3, seed: int = 0,
+                                separation: float = 2.0,
+                                chunk_rows: Optional[int] = None) -> CorpusMeta:
+    """Synthetic sparse binary classification at paper-like density.
+
+    Per-row nnz ~ Binomial(features, density) clipped to >= 1; column ids
+    are distinct and sorted; values are N(0, 1).  ``w_true`` is scaled by
+    1/sqrt(features * density) so margins are O(1) at any density (the dense
+    generator's 1/sqrt(features) under E[nnz] = features * density).
+    Labels are {-1, +1} via a logistic model, classes interleaved (the paper
+    pre-shuffles before CS/SS).
+    """
+    if chunk_rows is None:
+        # the column-candidate draw below materializes (chunk, features)
+        # floats — bound it to ~128 MB so news20-wide corpora generate
+        chunk_rows = max(64, (128 << 20) // (max(features, 1) * 4))
+    rng = np.random.default_rng(seed)
+    w_true = rng.normal(size=features) / np.sqrt(max(1.0, features * density))
+    writer = _CSRWriter(path)
+    w_ext = np.append(w_true, 0.0).astype(np.float32)   # sentinel col -> 0
+    for lo in range(0, rows, chunk_rows):
+        c = min(chunk_rows, rows - lo)
+        k = rng.binomial(features, density, size=c).clip(1, features)
+        kc = int(k.max())
+        if kc < features:
+            u = rng.random((c, features), dtype=np.float32)
+            cand = np.argpartition(u, kc - 1, axis=1)[:, :kc].astype(np.int32)
+        else:
+            cand = np.tile(np.arange(features, dtype=np.int32), (c, 1))
+        valid = np.arange(kc)[None, :] < k[:, None]
+        # sentinel-sort: invalid slots become `features` and land at the end,
+        # so the first k columns of each row are the real ones, ascending
+        cols = np.sort(np.where(valid, cand, features), axis=1)
+        vals = rng.normal(size=(c, kc)).astype(np.float32)
+        z = np.sum(np.where(valid, vals, 0.0) * w_ext[cols], axis=1)
+        p = 1.0 / (1.0 + np.exp(-separation * z))
+        y = np.where(rng.uniform(size=c) < p, 1.0, -1.0).astype(np.float32)
+        writer.append(cols[valid], vals[valid], y, k.astype(np.int64))
+    return writer.finish(features)
+
+
+# ---------------------------------------------------------------------------
+# padded-ELL mini-batches (static (b, kmax) shapes)
+# ---------------------------------------------------------------------------
+
+class SparseBatch(NamedTuple):
+    """One mini-batch in padded-ELL form: static ``(b, kmax)`` shapes.
+
+    Padding slots have ``cols == 0`` and ``vals == 0`` — a zero value
+    contributes nothing to either the margin or the gradient scatter, so the
+    dense-shaped math needs no mask.  ``nnz`` is the real nonzero count
+    (bytes accounting / diagnostics).
+    """
+    cols: np.ndarray       # (b, kmax) int32
+    vals: np.ndarray       # (b, kmax) float32
+    y: np.ndarray          # (b,) float32
+    nnz: int
+
+
+def _pad_segments(flat_cols: np.ndarray, flat_vals: np.ndarray,
+                  lens: np.ndarray, offs: np.ndarray, kmax: int,
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """Scatter row segments of a flat CSR slice into (b, kmax) ELL arrays."""
+    b = len(lens)
+    pos = np.arange(kmax, dtype=np.int64)[None, :]
+    valid = pos < lens[:, None]
+    src = np.minimum(offs[:, None] + pos, max(0, len(flat_cols) - 1))
+    if len(flat_cols) == 0:
+        return (np.zeros((b, kmax), np.int32), np.zeros((b, kmax), np.float32))
+    cols = np.where(valid, flat_cols[src], 0).astype(np.int32)
+    vals = np.where(valid, flat_vals[src], 0.0).astype(np.float32)
+    return cols, vals
+
+
+class SparsePipeline(PrefetchPipeline):
+    """CSR-aware mirror of :class:`DataPipeline`: same samplers, same
+    two-integer checkpointable state, padded-ELL batches out.
+
+    Access patterns per scheme (the whole point):
+
+    * CS/SS — ONE contiguous slice ``values[indptr[s]:indptr[s+b]]`` (plus
+      the (b+1) indptr entries and b labels); wrap-around at the shard end
+      is two contiguous slices, like the dense pipeline.
+    * RS — b scattered row-segment reads, one seek each.
+
+    ``stats.bytes_read`` counts indices + values + indptr + label bytes
+    actually touched (nnz-proportional).
+    """
+
+    def __init__(self, cfg: PipelineConfig, start_step: int = 0,
+                 tracer=NULL_TRACER, sampler_meta=None):
+        super().__init__(cfg.prefetch)
+        self.cfg = cfg
+        self.tracer = tracer
+        self.csr = open_csr_corpus(cfg.corpus)
+        self.meta = self.csr.meta
+        lo, hi = host_shard(self.meta.rows, cfg.host, cfg.num_hosts)
+        self.lo, self.hi = lo, hi
+        self.scheme = schemes.resolve(cfg.sampling)
+        meta = sampler_meta if sampler_meta is not None else {
+            "scheme": self.scheme.name, "seed": cfg.seed + cfg.host,
+            "step": start_step}
+        self.sampler = self.scheme.restore(meta, hi - lo, cfg.batch_size)
+        self.stats = AccessStats()
+        self.kmax = self.csr.kmax
+        self._itemsize = (self.csr.indices.itemsize
+                          + self.csr.values.itemsize)
+
+    def _read_rows_contiguous(self, r0: int, r1: int):
+        """One contiguous run of rows [r0, r1): single indices/values slice.
+
+        np.array, not asarray: memmap slices are lazy views and the caller
+        times this read — the pages must fault HERE, not downstream.
+        """
+        ptr = np.array(self.csr.indptr[r0:r1 + 1])
+        flat_c = np.array(self.csr.indices[ptr[0]:ptr[-1]])
+        flat_v = np.array(self.csr.values[ptr[0]:ptr[-1]])
+        y = np.array(self.csr.labels[r0:r1])
+        return flat_c, flat_v, np.diff(ptr), ptr[:-1] - ptr[0], y, ptr
+
+    def _read_batch(self):
+        # the timed span covers the READS only (indptr, indices, values,
+        # labels — what the access pattern governs); the ELL padding below
+        # is batch FORMATTING, the sparse analogue of the dense path's
+        # rows->(X, y) convert, so it rides the separate `convert` lane and
+        # never inflates access accounting.  The span's duration is the
+        # number booked into AccessStats — trace and stats cannot drift.
+        with self.tracer.timespan("read", ACCESS,
+                                  scheme=self.scheme.name) as sp:
+            csr = self.csr
+            bi, self.sampler = self.scheme.next_batch(self.sampler)
+            b = bi.idx.shape[0]          # this step's row count (== the
+            # configured batch size except for variable-size schemes)
+            if bi.start is not None:     # contiguous block (CS/SS-profile)
+                r0 = self.lo + bi.start
+                start = bi.start
+                if start + b <= self.hi - self.lo:
+                    fc, fv, lens, offs, y, ptr = self._read_rows_contiguous(
+                        r0, r0 + b)
+                    touched_ptr = len(ptr)
+                else:  # wrap-around at shard end: two contiguous reads
+                    first = self.hi - r0
+                    a = self._read_rows_contiguous(r0, self.hi)
+                    c = self._read_rows_contiguous(self.lo,
+                                                   self.lo + b - first)
+                    fc = np.concatenate([a[0], c[0]])
+                    fv = np.concatenate([a[1], c[1]])
+                    lens = np.concatenate([a[2], c[2]])
+                    offs = np.concatenate([a[3], len(a[0]) + c[3]])
+                    y = np.concatenate([a[4], c[4]])
+                    touched_ptr = len(a[5]) + len(c[5])
+                nnz = int(lens.sum())
+                nbytes = (nnz * self._itemsize
+                          + touched_ptr * csr.indptr.itemsize
+                          + y.nbytes)
+            else:   # RS: b scattered row-segment gathers
+                rows = self.lo + bi.idx
+                starts = np.asarray(csr.indptr[rows])   # fancy-index: copies
+                lens = np.asarray(csr.indptr[rows + 1]) - starts
+                nnz = int(lens.sum())
+                offs = np.cumsum(lens) - lens
+                # element ids of every nonzero in the batch — still
+                # SCATTERED segments of indices/values, but gathered in one
+                # vectorized fancy-index so the timed region measures
+                # storage access, not a Python per-row loop (the dense RS
+                # path is vectorized too)
+                elem = (starts.repeat(lens)
+                        + np.arange(nnz, dtype=np.int64) - offs.repeat(lens))
+                fc = np.asarray(csr.indices[elem])
+                fv = np.asarray(csr.values[elem])
+                y = np.asarray(csr.labels[rows])
+                nbytes = (nnz * self._itemsize
+                          + 2 * b * csr.indptr.itemsize  # row (start, end)
+                          + y.nbytes)
+            sp.set(bytes=nbytes, nnz=nnz)
+        self.stats.record(sp.dur, nbytes)
+        with self.tracer.span("ell_pad", CONVERT, nnz=nnz):
+            cols, vals = _pad_segments(fc, fv, lens, offs, self.kmax)
+            y = y.astype(np.float32)
+            bmax = self.cfg.batch_size
+            if b < bmax:
+                # variable-size scheme: pad the ROW count back to the static
+                # staged shape with all-zero rows (zero features and zero
+                # label contribute exactly zero to the ELL data gradient;
+                # the scheme's weight re-normalizes the batch mean).  Pure
+                # formatting — access accounting above counted only the b
+                # real rows.
+                cols = np.concatenate(
+                    [cols, np.zeros((bmax - b, self.kmax), np.int32)])
+                vals = np.concatenate(
+                    [vals, np.zeros((bmax - b, self.kmax), np.float32)])
+                y = np.concatenate([y, np.zeros(bmax - b, np.float32)])
+        batch = SparseBatch(cols, vals, y, nnz)
+        if self.scheme.adaptive:
+            return batch, bi.j, bi.weight
+        return batch
+
+
+# ---------------------------------------------------------------------------
+# streamed full-corpus helpers (SciPy-backed when available, numpy otherwise)
+# ---------------------------------------------------------------------------
+
+def _loss_np(loss: str, z: np.ndarray, y: np.ndarray) -> np.ndarray:
+    if loss == LOGISTIC:
+        return np.logaddexp(0.0, -y * z)
+    if loss == SQUARE:
+        return 0.5 * (z - y) ** 2
+    if loss == SMOOTH_HINGE:
+        t = y * z
+        return np.where(t >= 1.0, 0.0,
+                        np.where(t <= 0.0, 0.5 - t, 0.5 * (1.0 - t) ** 2))
+    raise ValueError(f"unknown loss {loss!r}")
+
+
+def _dloss_np(loss: str, z: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """d/dz of the margin loss — mirrors ``kernels.fused_erm._dloss``."""
+    if loss == LOGISTIC:
+        return -y / (1.0 + np.exp(y * z))
+    if loss == SQUARE:
+        return z - y
+    if loss == SMOOTH_HINGE:
+        t = y * z
+        return -y * np.where(t >= 1.0, 0.0, np.where(t <= 0.0, 1.0, 1.0 - t))
+    raise ValueError(f"unknown loss {loss!r}")
+
+
+def _chunk_margins(csr: CSRCorpus, w: np.ndarray, lo: int, hi: int):
+    """(z, flat_cols, flat_vals, rowid) for rows [lo, hi)."""
+    ptr = np.asarray(csr.indptr[lo:hi + 1])
+    fc = np.asarray(csr.indices[ptr[0]:ptr[-1]])
+    fv = np.asarray(csr.values[ptr[0]:ptr[-1]])
+    lens = np.diff(ptr)
+    rowid = np.repeat(np.arange(hi - lo), lens)
+    if _scipy_sparse is not None:
+        Xc = _scipy_sparse.csr_matrix((fv, fc, ptr - ptr[0]),
+                                      shape=(hi - lo, csr.features))
+        z = Xc @ w
+    else:
+        z = np.bincount(rowid, weights=fv * w[fc], minlength=hi - lo)
+    return z.astype(np.float64), fc, fv, rowid
+
+
+def csr_full_grad(problem, csr: CSRCorpus, w, *, data_term_only: bool = False,
+                  chunk: int = 8192) -> np.ndarray:
+    """Streamed full gradient over a CSR corpus, on the host in float64 —
+    the SVRG/SAAG-II epoch snapshot of the ``sparse-csr`` backend.
+
+    Mean data-term gradient; adds ``reg * w`` unless ``data_term_only``.
+    """
+    wn = np.asarray(w, np.float64)
+    g = np.zeros_like(wn)
+    for lo in range(0, csr.rows, chunk):
+        hi = min(csr.rows, lo + chunk)
+        z, fc, fv, rowid = _chunk_margins(csr, wn, lo, hi)
+        y = np.asarray(csr.labels[lo:hi], np.float64)
+        s = _dloss_np(problem.loss, z, y) / csr.rows
+        g += np.bincount(fc, weights=fv * s[rowid], minlength=len(wn))
+    if not data_term_only:
+        g += problem.reg * wn
+    return g.astype(np.asarray(w).dtype)
+
+
+def csr_objective(problem, csr: CSRCorpus, w, *, chunk: int = 8192) -> float:
+    """Streamed full objective (mean loss + l2 term) over a CSR corpus."""
+    wn = np.asarray(w, np.float64)
+    total = 0.0
+    for lo in range(0, csr.rows, chunk):
+        hi = min(csr.rows, lo + chunk)
+        z, _, _, _ = _chunk_margins(csr, wn, lo, hi)
+        y = np.asarray(csr.labels[lo:hi], np.float64)
+        total += float(_loss_np(problem.loss, z, y).sum())
+    return total / csr.rows + 0.5 * problem.reg * float(wn @ wn)
+
+
+def csr_block_losses(problem, csr: CSRCorpus, w, batch_size: int,
+                     *, chunk: int = 8192) -> Tuple[np.ndarray, float]:
+    """Per-contiguous-block mean data loss AND the full objective, one
+    streamed pass over a CSR corpus.
+
+    Block ``j`` is rows ``[j*b, min((j+1)*b, rows))`` — the same contiguous
+    blocks :class:`~repro.core.schemes.ChunkImportance` stages — so the
+    returned ``(m,)`` vector feeds straight into ``Scheme.observe`` as
+    ``block_losses``.  Returns ``(block_means, objective)``; the objective
+    (mean loss + l2 term) comes free from the same margins, so the adaptive
+    executor's per-epoch eval costs one pass, not two.
+    """
+    wn = np.asarray(w, np.float64)
+    b = batch_size
+    m = -(-csr.rows // b)
+    sums = np.zeros(m, np.float64)
+    counts = np.zeros(m, np.int64)
+    for lo in range(0, csr.rows, chunk):
+        hi = min(csr.rows, lo + chunk)
+        z, _, _, _ = _chunk_margins(csr, wn, lo, hi)
+        y = np.asarray(csr.labels[lo:hi], np.float64)
+        losses = _loss_np(problem.loss, z, y)
+        blk = (lo + np.arange(hi - lo)) // b
+        np.add.at(sums, blk, losses)
+        np.add.at(counts, blk, 1)
+    obj = float(sums.sum()) / csr.rows + 0.5 * problem.reg * float(wn @ wn)
+    return sums / np.maximum(counts, 1), obj
+
+
+def csr_lipschitz(problem, csr: CSRCorpus, *, chunk: int = 8192) -> float:
+    """Upper bound on L: c * max_i ||x_i||^2 + reg (c as in ERMProblem)."""
+    c = 0.25 if problem.loss == LOGISTIC else 1.0
+    max_sq = 0.0
+    for lo in range(0, csr.rows, chunk):
+        hi = min(csr.rows, lo + chunk)
+        ptr = np.asarray(csr.indptr[lo:hi + 1])
+        fv = np.asarray(csr.values[ptr[0]:ptr[-1]], np.float64)
+        lens = np.diff(ptr)
+        rowid = np.repeat(np.arange(hi - lo), lens)
+        sq = np.bincount(rowid, weights=fv * fv, minlength=hi - lo)
+        if sq.size:
+            max_sq = max(max_sq, float(sq.max()))
+    return c * max_sq + problem.reg

@@ -3,8 +3,9 @@
 Each source in ``csrc/`` compiles into one shared library with a plain C
 interface, for ``sm_90a`` (Hopper).  The library lands in the build
 directory (``build/repro_torch/`` at the repository root, or
-``$REPRO_TORCH_BUILD_DIR``) under a name keyed by a hash of the source and
-the flags, so an edited source never loads a stale build.  Nothing is built
+``$REPRO_TORCH_BUILD_DIR``) under a name keyed by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source never
+loads a stale build.  Nothing is built
 at import: :func:`load` builds on first use, and a failed build raises.
 """
 from __future__ import annotations
@@ -15,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -49,7 +51,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, build_dir() / f"{name}_{digest}.so"
 
@@ -80,3 +83,12 @@ def load(name: str) -> ctypes.CDLL:
             if lib is None:
                 lib = _LIBS[name] = ctypes.CDLL(str(_compile(name)))
     return lib
+
+
+def load_all(*names: str) -> None:
+    """Build the named sources concurrently, one ``nvcc`` each, then load
+    them: the build time of several sources is that of the slowest."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(_compile, names))
+    for name in names:
+        load(name)

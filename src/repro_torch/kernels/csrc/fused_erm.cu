@@ -36,40 +36,13 @@
 // Every entry point launches on the caller's stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError() after its launches.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "erm_common.cuh"
 
 namespace {
 
-constexpr int LOGISTIC = 0, SQUARE = 1, SMOOTH_HINGE = 2;
-constexpr int MARGINS_ONLY = -1;     // margins kernel writes z, not s
 constexpr int WARPS_PER_BLOCK = 8;   // margins: one warp per batch row
 constexpr int COL_TILE = 32;         // gradient: columns per block
 constexpr int ROW_GROUPS = 8;        // gradient: row subsets per column
-
-// d/dz of the per-example margin loss (repro.kernels.fused_erm._dloss).
-// expf, not __expf: the logistic branch stays within 1e-6 of jax.nn.sigmoid.
-template <int LOSS>
-__device__ __forceinline__ float dloss(float z, float y) {
-  if (LOSS == LOGISTIC) {
-    return -y * (1.0f / (1.0f + expf(y * z)));   // -y * sigmoid(-y z)
-  } else if (LOSS == SQUARE) {
-    return z - y;
-  } else {
-    const float t = y * z;
-    return -y * (t >= 1.0f ? 0.0f : (t <= 0.0f ? 1.0f : 1.0f - t));
-  }
-}
-
-// Corpus row of batch entry i: idx[i] (RS) or the clamped block row (CS/SS).
-// The block start comes from device memory (start_ptr, a schedule entry that
-// is never read back to the host) or, when start_ptr is null, by value.
-__device__ __forceinline__ int batch_row(const int* idx, const int* start_ptr,
-                                         int start_val, int l, int b, int i) {
-  if (idx != nullptr) return idx[i];
-  const int s = start_ptr != nullptr ? *start_ptr : start_val;
-  return min(max(s, 0), l - b) + i;
-}
 
 // z_i = X[row_i] . w, or s_i = dloss(z_i, y[row_i]) / b when LOSS >= 0.
 // An index outside [0, l) yields NaN instead of reading out of bounds.

@@ -95,7 +95,8 @@ def _check_tensor(name: str, t, dtype, ndim: int, device) -> None:
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if t.device != device:
-        raise ValueError(f"{name} lies on {t.device}, X on {device}")
+        raise ValueError(f"{name} lies on {t.device}, the other inputs on "
+                         f"{device}")
 
 
 def _check(X, w, y=None, idx=None) -> Tuple[int, int]:
@@ -136,7 +137,8 @@ def _start_arg(start: Start, device) -> Tuple[Optional[int], int]:
             raise TypeError(f"start tensor must hold one int32, got "
                             f"{start.dtype} of shape {tuple(start.shape)}")
         if start.device != device:
-            raise ValueError(f"start lies on {start.device}, X on {device}")
+            raise ValueError(f"start lies on {start.device}, the other "
+                             f"inputs on {device}")
         return start.data_ptr(), 0
     return None, int(start)
 

@@ -78,12 +78,11 @@ def test_plan_decisions_match_reference(corpus, arrays, src, solver, scheme,
     for f in ("backend", "placement", "kernel", "chunk", "num_batches",
               "rows", "features", "corpus_bytes", "fmt"):
         assert getattr(tp, f) == getattr(jp, f), f
-    # every port field as the reference sets it; the reference's one extra
-    # field, ``sparse``, is off on the dense path the port runs
+    # every config field as the reference sets it (``sparse`` is off on a
+    # dense corpus)
     jcfg = jp.cfg._replace(step_size=0)._asdict()
-    assert tp.cfg._replace(step_size=0)._asdict() == {
-        k: jcfg.pop(k) for k in tx.SolverConfig._fields}
-    assert jcfg == {"sparse": False}
+    assert tp.cfg._replace(step_size=0)._asdict() == jcfg
+    assert not tp.cfg.sparse
     np.testing.assert_allclose(tp.cfg.step_size, jp.cfg.step_size,
                                rtol=1e-6)
     assert tp.device == "cpu"

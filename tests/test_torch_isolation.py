@@ -40,8 +40,10 @@ def test_execute_on_cpu_leaves_jax_unimported(tmp_path):
     code = f"""
 import sys
 import numpy as np
+import torch
 from repro_torch.api import DataSource, ExperimentSpec, execute, plan
-from repro_torch.data import dataset
+from repro_torch.data import dataset, sparse
+from repro_torch.kernels import sparse_erm
 p = {str(tmp_path / 'c.bin')!r}
 dataset.synth_erm_corpus(p, rows=300, features=5, seed=0)
 for placement, kernel in (("streamed", "auto"), ("resident", "fused")):
@@ -50,6 +52,14 @@ for placement, kernel in (("streamed", "auto"), ("resident", "fused")):
                                     placement=placement, kernel=kernel),
                      device="cpu"))
     assert np.isfinite(r.objective)
+c = {str(tmp_path / 'c.csr')!r}
+sparse.synth_sparse_classification(c, rows=300, features=40, density=0.1)
+r = execute(plan(ExperimentSpec(DataSource.corpus(c), solver="svrg",
+                                batch_size=50, epochs=1), device="cpu"))
+assert r.plan.backend == "sparse-csr" and np.isfinite(r.objective)
+dev = sparse_erm.csr_to_device(sparse.open_csr_corpus(c), device="cpu")
+sparse_erm.sparse_batch_grad(r.plan.spec.problem, dev,
+                             torch.zeros(40), start=0, batch_size=50)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
 assert not bad, bad
 print("ok")
