@@ -11,7 +11,8 @@ and prints no result):
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all at once)
    and print the build time and ``ptxas`` lines; generate the CSR corpus
    (100,000 x 65,536 at density 0.002, seed 0: the sparse benchmark default
-   of ``benchmarks/erm_timing.py``) and print how long that took;
+   of ``benchmarks/erm_timing.py``) and a 1,000,000 x 18 dense corpus for
+   phases 5 and 5b, and print how long that took;
 2. each fused kernel against its plain PyTorch version on the card — the
    main-path shape (a 5,000,000 x 18 SUSY-shaped corpus resident, b = 500)
    and a wide case (l = 20,000, n = 4,096 and a ragged n = 1,000), three
@@ -26,6 +27,18 @@ and prints no result):
    at clamped starts, and on a small hand-written corpus (an empty row, a
    repeated column, a row of 5,000 nonzeros); two calls of each kernel give
    equal bits; then each kernel's times beside its bound;
+2c. the gather kernels against their plain versions, bit for bit: float32,
+   bfloat16 and int32 (block) and float32, bfloat16 (rows) at the
+   reference tests' shapes, every block index and clamped ones, duplicate
+   and out-of-range ids, and the resident SUSY corpus; then their times at
+   the SUSY shape, ``benchmarks/access_time.py``'s device shape (200,000 x
+   100, b = 1,000) and the wide shape (20,000 x 4,096, b = 500);
+2d. access time per scheme, the paper's §1-2 measurement: the host tier
+   through ``DataPipeline.read_batch`` on a memmapped 200,000 x 100 corpus,
+   the device tier through ``ops.random_gather`` (RS) and
+   ``ops.block_gather`` (CS/SS) — the gather kernels' path, launches counted
+   around it — with the RS/SS speedup beside ``access_model``'s prediction
+   for every tier, and the card's ``hbm_dma`` constants from this run;
 3. the main path at full size through ``plan()``/``execute()``: three
    resident-fused cells of 2 epochs and one streamed-eager epoch on the
    synthetic corpus, with every kernel's launch count read around the run;
@@ -38,7 +51,18 @@ and prints no result):
 4b. the 15 constant-step cells at l = 2,000, n = 4,096, density 0.01,
    b = 100: ``sparse-csr`` on the CSR corpus against ``streamed-eager`` on
    the same corpus densified, on the final w;
-5. one JSON line of kernel records, the ``nvidia-smi`` line, and the
+5. durable runs at full size — resident-fused and streamed-eager
+   saga/systematic on the SUSY corpus, ``sparse-csr`` saga/systematic on
+   the CSR corpus: 2 epochs with ``CheckpointPolicy(every=1)``, then 1
+   epoch, ``resume_from(dir)`` with no plan and 1 more, bitwise equal; the
+   seconds per save from the CHECKPOINT lane and the bytes per snapshot;
+5b. ``chunk_importance`` and ``stochastic_batch`` streamed at n = 18 for 2
+   epochs, objectives finite and below the value at w = 0;
+5/5b. SIGKILL and resume in child processes (``benchmarks/
+   fault_injection.py`` mode ``basic``): resident-fused saga/systematic and
+   each adaptive scheme, the victims killed after their first ``LATEST``,
+   each survivor bitwise equal to an uninterrupted run;
+6. one JSON line of kernel records, the ``nvidia-smi`` line, and the
    device record as the last line.
 
 Details go to ``chip_smoke.json`` in ``--out`` (default
@@ -47,8 +71,10 @@ Details go to ``chip_smoke.json`` in ``--out`` (default
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -67,6 +93,9 @@ REPLACES = {"fused_grad_block": "src/repro/kernels/fused_erm.py:140",
             "fused_margins_block": "src/repro/kernels/fused_erm.py:254",
             "fused_margins_rows": "src/repro/kernels/fused_erm.py:290"}
 SPARSE_SOURCE = "src/repro_torch/kernels/csrc/sparse_erm.cu"
+GATHER_SOURCE = "src/repro_torch/kernels/csrc/sampled_gather.cu"
+GATHER_REPLACES = {"block_gather": "src/repro/kernels/sampled_gather.py:34",
+                   "random_gather": "src/repro/kernels/sampled_gather.py:58"}
 SPARSE_REPLACES = {"sparse_grad_rows": "src/repro/kernels/sparse_erm.py:180",
                    "sparse_grad_block": "src/repro/kernels/sparse_erm.py:260",
                    "sparse_margins_rows": "src/repro/kernels/sparse_erm.py:339",
@@ -811,6 +840,443 @@ def csr_matrix(api, sparse, dataset, root):
 
 
 # ---------------------------------------------------------------------------
+# phases 2c and 2d: the gather kernels and the access time per scheme
+# ---------------------------------------------------------------------------
+
+GATHER_SHAPES = [(64, 128, 8), (256, 256, 32), (40, 512, 8), (512, 256, 16)]
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal raw words: a copy must move every bit, NaN payloads included."""
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+            torch.int32: torch.int32}
+    return a.dtype == b.dtype and torch.equal(a.view(view[a.dtype]),
+                                              b.view(view[b.dtype]))
+
+
+def check_gather_kernels(torch, sg, Xm, errs):
+    """Each gather kernel against its plain version, bit for bit: the
+    reference tests' shapes and dtypes (float32, bfloat16, int32 for the
+    block kernel; float32, bfloat16 for the rows kernel), every block index
+    and two past the end (clamped), a negative one, row ids with duplicates
+    and out-of-range ids; then the resident SUSY-shaped corpus at full size.
+    These launches do not count."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    cases = 0
+
+    def cmp(name, k, p, tag):
+        nonlocal cases
+        torch.cuda.synchronize()
+        if not same_bits(torch, k, p):
+            raise AssertionError(f"{name} {tag}: the kernel's bits differ "
+                                 f"from its plain version's")
+        errs[name] = max(errs.get(name, 0.0),
+                         (k.float() - p.float()).abs().max().item())
+        cases += 1
+
+    def both(X, b, tag):
+        l = X.shape[0]
+        for bi in list(range(l // b + 2)) + [-1]:
+            t = torch.tensor(bi, dtype=torch.int32, device="cuda")
+            cmp("block_gather", sg.block_gather(X, t, batch_size=b),
+                sg._block_gather_plain(X, t, b), f"{tag} block {bi}")
+        if X.dtype != torch.int32:
+            idx = torch.randint(0, l, (b,), device="cuda", generator=g,
+                                dtype=torch.int32)
+            idx[1], idx[-1] = idx[0], l - 1
+            cmp("random_gather", sg.random_gather(X, idx),
+                sg._random_gather_plain(X, idx), f"{tag} rows")
+            bad = torch.tensor([-5, l, l + 9, 0], dtype=torch.int32,
+                               device="cuda")
+            cmp("random_gather", sg.random_gather(X, bad),
+                sg._random_gather_plain(X, bad), f"{tag} out-of-range ids")
+
+    for l, n, b in GATHER_SHAPES:
+        base = torch.randn(l, n, device="cuda", generator=g) * 100
+        for dt in (torch.float32, torch.bfloat16, torch.int32):
+            both(base.to(dt), b, f"{l}x{n} b={b} {dt}")
+    sched = torch.randint(0, Xm.shape[0] // B, (16,), device="cuda",
+                          generator=g, dtype=torch.int32)
+    for bi in sched:
+        cmp("block_gather", sg.block_gather(Xm, bi, batch_size=B),
+            sg._block_gather_plain(Xm, bi, B), "SUSY block")
+    idx = torch.randint(0, Xm.shape[0], (B,), device="cuda", generator=g,
+                        dtype=torch.int32)
+    idx[3] = idx[2]
+    cmp("random_gather", sg.random_gather(Xm, idx),
+        sg._random_gather_plain(Xm, idx), "SUSY rows")
+    log(f"  {cases} cases: both gather kernels equal their plain versions "
+        f"bit for bit (float32, bfloat16, int32; clamped and negative "
+        f"blocks, duplicate and out-of-range ids)")
+
+
+def time_gather(torch, sg, X, b, reps):
+    """Per gather kernel at (X, b): device ms, host ms, plain ms, library ms
+    (one ``index_select`` for the rows, ``narrow(...).clone()`` with the
+    start on the host for the block) and the bytes bound: the batch read
+    once and written once, plus the block index or the row ids."""
+    l, n = X.shape
+    isz = X.element_size()
+    g = torch.Generator(device="cuda").manual_seed(17)
+    nt = 64
+    blocks = torch.randint(0, l // b, (nt,), device="cuda", generator=g,
+                           dtype=torch.int32)
+    blocks_h = blocks.tolist()
+    idx = torch.randint(0, l, (nt, b), device="cuda", generator=g,
+                        dtype=torch.int32)
+    bytes_ = {"block_gather": 2 * b * n * isz + 4,
+              "random_gather": 2 * b * n * isz + 4 * b}
+    calls = {
+        "block_gather": (
+            lambda i: sg.block_gather(X, blocks[i % nt], batch_size=b),
+            lambda i: sg._block_gather_plain(X, blocks[i % nt], b),
+            lambda i: X.narrow(0, blocks_h[i % nt] * b, b).clone()),
+        "random_gather": (
+            lambda i: sg.random_gather(X, idx[i % nt]),
+            lambda i: sg._random_gather_plain(X, idx[i % nt]),
+            lambda i: torch.index_select(X, 0, idx[i % nt]))}
+    out = {}
+    for name, (kern, plain, lib) in calls.items():
+        out[name] = {
+            "ms": device_ms(torch, kern, reps),
+            "host_ms": host_ms(torch, kern, reps),
+            "plain_ms": device_ms(torch, plain, reps),
+            "library_ms": device_ms(torch, lib, reps),
+            "bound_ms": bytes_[name] / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bytes": bytes_[name],
+            "shape": [l, n, b], "dtype": str(X.dtype)}
+    return out
+
+
+def access_time(torch, sg, ops, pipemod, samplers, am, dataset, root, rows,
+                reps_wide):
+    """The paper's §1-2 measurement (``benchmarks/access_time.py``) with the
+    port: the host tier reads 100 batches per scheme through
+    ``DataPipeline.read_batch`` from a memmapped rows x 100 corpus; the
+    device tier assembles one epoch of each scheme's batches on the card
+    with ``ops.random_gather`` (RS) and ``ops.block_gather`` (CS/SS) — the
+    gather kernels' path, with their launches counted around it.  Then the
+    card's ``hbm_dma`` constants from this run, and the model's predicted
+    RS/SS speedup for every tier."""
+    b, width = 1000, 100
+    corpus = root / f"access_{rows}x{width}.bin"
+    if not corpus.exists():
+        dataset.synth_erm_corpus(corpus, rows=rows, features=width - 1)
+    row_bytes = width * 4
+    host = {}
+    for scheme in samplers.SCHEMES:
+        p = pipemod.DataPipeline(pipemod.PipelineConfig(
+            corpus=corpus, batch_size=b, sampling=scheme, prefetch=0))
+        for _ in range(5):
+            p.read_batch()
+        p.stats = pipemod.AccessStats()
+        for _ in range(100):
+            p.read_batch()
+        host[scheme] = p.stats.s_per_batch
+    mm, _ = dataset.open_corpus(corpus)
+    X = torch.from_numpy(np.array(mm[:, :width])).cuda()
+    scheds = {s: torch.from_numpy(samplers.epoch_schedule(s, 0, 0, rows, b))
+              .cuda() for s in samplers.SCHEMES}
+    m = rows // b
+    blocks = {s: scheds[s] // b for s in ("cyclic", "systematic")}
+    calls = {"random": lambda i: ops.random_gather(X, scheds["random"][i % m]),
+             "cyclic": lambda i: ops.block_gather(
+                 X, blocks["cyclic"][i % m], batch_size=b),
+             "systematic": lambda i: ops.block_gather(
+                 X, blocks["systematic"][i % m], batch_size=b)}
+    sg.reset_launches()
+    device = {s: device_ms(torch, fn, m) * 1e-3 for s, fn in calls.items()}
+    torch.cuda.synchronize()
+    launches = dict(sg.LAUNCHES)
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"{name} was never launched on the access-"
+                                 f"time path")
+    for s in samplers.SCHEMES:      # the batches the path assembled
+        ref = (X.index_select(0, scheds[s][0].long()) if s == "random" else
+               X.narrow(0, int(scheds[s][0]), b))
+        if not torch.equal(calls[s](0), ref):
+            raise AssertionError(f"access-time {s}: wrong batch")
+    del X
+    # the card's tier from this run: bandwidth from the wide block copy,
+    # the per-descriptor cost from rows against block at equal bytes
+    Xw = torch.randn(20_000, 4096, device="cuda")
+    wb = torch.randint(0, 20_000 // B, (64,), dtype=torch.int32,
+                       device="cuda")
+    bw_bytes = B * 4096 * 4
+    t_wide = device_ms(torch, lambda i: sg.block_gather(
+        Xw, wb[i % 64], batch_size=B), reps_wide) * 1e-3
+    del Xw
+    card = am.Tier("hbm_dma", seek_s=0.0,
+                   latency_s=(device["random"] - device["systematic"])
+                   / (b - 1),
+                   bandwidth=bw_bytes / t_wide, block_bytes=32)
+    pred = {name: am.predicted_speedup(t, rows, b, row_bytes)
+            for name, t in am.TIERS.items()}
+    pred_card = (am.predicted_speedup(card, rows, b, row_bytes)
+                 if card.latency_s >= 0 else None)
+    out = {"rows": rows, "features": width, "batch": b,
+           "host_s_per_batch": host, "device_s_per_batch": device,
+           "host_rs_over_ss": host["random"] / host["systematic"],
+           "device_rs_over_ss": device["random"] / device["systematic"],
+           "predicted_rs_over_ss": pred,
+           "predicted_rs_over_ss_this_run_tier": pred_card,
+           "hbm_dma_this_run": dataclasses.asdict(card),
+           "hbm_dma_committed": dataclasses.asdict(am.HBM_DMA),
+           "wide_block_s": t_wide, "launches": launches}
+    for tier, d in (("host", host), ("device", device)):
+        log(f"  {tier} tier s per batch: " + ", ".join(
+            f"{s} {v:.6e}" for s, v in d.items())
+            + f"; RS/SS {d['random'] / d['systematic']:.3f}")
+    log("  predicted RS/SS (access_model): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in pred.items())
+        + f"; hbm_dma from this run {pred_card}")
+    log(f"  hbm_dma from this run: bandwidth {card.bandwidth:.6e} B/s "
+        f"({bw_bytes} B in {t_wide * 1e3:.6f} ms), latency_s "
+        f"{card.latency_s:.6e}; launches {launches}")
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 5b: durable runs and adaptive schemes at full size
+# ---------------------------------------------------------------------------
+
+KILL_CASE = """
+import sys
+sys.path.insert(0, {src!r})
+import numpy as np
+from pathlib import Path
+from repro_torch.api import (CheckpointPolicy, DataSource, ExperimentSpec,
+                             execute, plan, resume_from)
+from repro_torch.core import schemes
+
+work = Path({work!r})
+p = plan(ExperimentSpec(data=DataSource.corpus({corpus!r}), solver="saga",
+                        scheme={scheme}, batch_size={b}, epochs={epochs},
+                        placement={placement!r}, step_size={step!r},
+                        checkpoint=CheckpointPolicy(work / "ckpt", every=1)))
+try:
+    res = resume_from(work / "ckpt")
+    print("RESUMED", res.epochs_done, flush=True)
+    p = res.plan
+except FileNotFoundError:
+    res = None
+remaining = {epochs} - (res.epochs_done if res else 0)
+r = execute(p, resume=res, epochs=remaining) if remaining else res
+np.save(work / "w.npy", np.asarray(r.w))
+np.save(work / "hist.npy", np.asarray(r.history))
+print("DONE", r.epochs_done, flush=True)
+"""
+
+
+def kill_and_resume(cases, root, timeout=600):
+    """``benchmarks/fault_injection.py`` mode ``basic`` on the card: for
+    each case a victim child process runs the checkpointed plan and is
+    SIGKILLed as soon as its first ``LATEST`` is committed; then a survivor
+    child resumes with ``resume_from(dir)`` (no spec: the plan is rebuilt
+    from the fingerprint, on the card) and finishes the budget.  The victims
+    start together, then the survivors.  Returns {name: (w, history,
+    resumed_at)}."""
+    procs, works = {}, {}
+    for name, fmt in cases.items():
+        work = root / f"kill_{name}"
+        if work.exists():
+            shutil.rmtree(work)
+        work.mkdir(parents=True)
+        works[name] = (work, KILL_CASE.format(src=str(ROOT / "src"),
+                                              work=str(work), **fmt))
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-c", works[name][1]], cwd=ROOT,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    deadline = time.time() + timeout
+    pending = set(procs)
+    try:
+        while pending and time.time() < deadline:
+            for name in list(pending):
+                if ((works[name][0] / "ckpt" / "LATEST").exists()
+                        or procs[name].poll() is not None):
+                    procs[name].kill()
+                    pending.discard(name)
+            time.sleep(0.02)
+    finally:
+        for name, pr in procs.items():
+            pr.kill()
+            _, err = pr.communicate(timeout=60)
+            if not (works[name][0] / "ckpt" / "LATEST").exists():
+                raise AssertionError(f"victim {name} committed no "
+                                     f"checkpoint:\n{err}")
+    survivors = {name: subprocess.Popen(
+        [sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name, (_, code) in works.items()}
+    out = {}
+    for name, pr in survivors.items():
+        try:
+            so, se = pr.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            pr.kill()
+            pr.communicate()
+            raise
+        if pr.returncode != 0 or "DONE" not in so:
+            raise AssertionError(f"survivor {name} failed:\n{so}\n{se}")
+        at = [ln for ln in so.splitlines() if ln.startswith("RESUMED")]
+        if not at:
+            raise AssertionError(f"survivor {name} did not resume")
+        work = works[name][0]
+        out[name] = (np.load(work / "w.npy"), np.load(work / "hist.npy"),
+                     int(at[0].split()[1]))
+    return out
+
+
+def checkpoint_costs(r, ckdir):
+    """Seconds per save from the CHECKPOINT lane of a traced run (the
+    synchronous host snapshot, and snapshot + serialize + commit), and the
+    bytes of one snapshot on disk."""
+    from repro_torch.obs import CHECKPOINT
+    evs = [e for e in r.timeline.events if e.lane == CHECKPOINT]
+    snaps = [e.dur for e in evs if e.name == "snapshot"]
+    total = sum(e.dur for e in evs)
+    step = sorted(p for p in ckdir.glob("step_*"))[-1]
+    nbytes = sum(f.stat().st_size for f in step.glob("*.npy"))
+    return {"saves": len(snaps),
+            "snapshot_s_per_save": sum(snaps) / max(len(snaps), 1),
+            "s_per_save": total / max(len(snaps), 1),
+            "bytes_per_snapshot": nbytes,
+            "files": sorted(f.name for f in step.iterdir())}
+
+
+def durable_cell(api, name, spec_kw, root, f0):
+    """2 epochs with ``CheckpointPolicy(every=1)``, traced; then 1 epoch, a
+    ``resume_from(dir)`` with no plan (rebuilt on the card), and 1 more
+    epoch: w and history must equal the 2-epoch run's bit for bit."""
+    from repro_torch.obs import TracePolicy
+    full_dir, split_dir = root / f"ck_{name}_full", root / f"ck_{name}_split"
+    for d in (full_dir, split_dir):
+        if d.exists():
+            shutil.rmtree(d)
+    src = api.DataSource.corpus(spec_kw.pop("corpus"))
+    p = api.plan(api.ExperimentSpec(
+        src, epochs=2, trace=TracePolicy(buffer=1 << 18),
+        checkpoint=api.CheckpointPolicy(full_dir, every=1), **spec_kw))
+    t0 = time.perf_counter()
+    full = api.execute(p)
+    full_s = time.perf_counter() - t0
+    hist = [float(h) for h in full.history]
+    if not all(math.isfinite(h) and h < f0 for h in hist):
+        raise AssertionError(f"durable {name}: objectives {hist} not finite "
+                             f"and below {f0}")
+    costs = checkpoint_costs(full, full_dir)
+    api.execute(api.plan(api.ExperimentSpec(
+        src, epochs=2, checkpoint=api.CheckpointPolicy(split_dir, every=1),
+        **spec_kw)), epochs=1)
+    res = api.resume_from(split_dir)
+    if res.plan.backend != p.backend or res.plan.device != p.device:
+        raise AssertionError(f"durable {name}: resume_from rebuilt "
+                             f"{res.plan.backend} on {res.plan.device}")
+    r = api.execute(res.plan, resume=res, epochs=1)
+    if not (np.array_equal(r.w, full.w)
+            and np.array_equal(r.history, full.history)):
+        raise AssertionError(f"durable {name}: the resumed run differs from "
+                             f"the uninterrupted one (max |dw| "
+                             f"{np.abs(r.w - full.w).max():.3e})")
+    log(f"  {name} ({p.backend}): 1 + resumed 1 epoch == 2 epochs, bitwise; "
+        f"{costs['saves']} saves, {costs['s_per_save']:.4f} s per save "
+        f"({costs['snapshot_s_per_save']:.4f} s synchronous snapshot), "
+        f"{costs['bytes_per_snapshot']} bytes per snapshot; history "
+        f"{[round(h, 6) for h in hist]}; epoch_s "
+        f"{full.breakdown()['epoch_s']:.3f}")
+    return full, {"cell": name, "backend": p.backend, "history": hist,
+                  "epoch_s": full.breakdown()["epoch_s"],
+                  "run_s": full_s, **costs}
+
+
+def durable_runs(api, path, csr_path, root):
+    """Phase 5: the three durable cells at full size."""
+    f0 = math.log(2.0)
+    out = []
+    cells = [("resident-fused", dict(corpus=path, solver="saga",
+                                     scheme="systematic", batch_size=B,
+                                     placement="resident", kernel="fused")),
+             ("streamed-eager", dict(corpus=path, solver="saga",
+                                     scheme="systematic", batch_size=B,
+                                     placement="streamed")),
+             ("sparse-csr", dict(corpus=csr_path, solver="saga",
+                                 scheme="systematic", batch_size=B))]
+    for name, kw in cells:
+        _, rec = durable_cell(api, name, dict(kw), root, f0)
+        if rec["backend"] != name:
+            raise AssertionError(f"durable {name} planned {rec['backend']}")
+        out.append(rec)
+    return out
+
+
+def kill_phase(api, kill_path, root, schemes_):
+    """The SIGKILL cases: resident-fused saga/systematic (phase 5) and each
+    adaptive scheme streamed (phase 5b), victims and survivors in child
+    processes, each survivor held against an uninterrupted in-process run
+    of the same plan, bit for bit."""
+    epochs = 4
+    cases = {"resident-fused": dict(corpus=str(kill_path), scheme="'systematic'",
+                                    b=B, epochs=epochs, placement="resident",
+                                    step=None)}
+    for s in schemes_:
+        cases[s] = dict(corpus=str(kill_path), scheme=f"schemes.resolve({s!r})",
+                        b=B, epochs=2, placement="streamed", step=None)
+    t0 = time.perf_counter()
+    got = kill_and_resume(cases, root)
+    kill_s = time.perf_counter() - t0
+    out = {}
+    for name, fmt in cases.items():
+        p = api.plan(api.ExperimentSpec(
+            api.DataSource.corpus(kill_path), solver="saga",
+            scheme=(fmt["scheme"].strip("'") if name == "resident-fused"
+                    else name), batch_size=B, epochs=fmt["epochs"],
+            placement=fmt["placement"]))
+        if name == "resident-fused" and p.backend != name:
+            raise AssertionError(f"SIGKILL {name} planned {p.backend}")
+        ref = api.execute(p)
+        w, hist, at = got[name]
+        if not (np.array_equal(w, ref.w) and np.array_equal(hist,
+                                                            ref.history)):
+            raise AssertionError(f"SIGKILL {name}: the survivor differs from "
+                                 f"the uninterrupted run (max |dw| "
+                                 f"{np.abs(w - ref.w).max():.3e})")
+        log(f"  SIGKILL {name} ({p.backend}): survivor resumed at epoch "
+            f"{at}/{fmt['epochs']}, bitwise equal to the uninterrupted run")
+        out[name] = {"backend": p.backend, "resumed_at": at,
+                     "epochs": fmt["epochs"],
+                     "history": [float(h) for h in ref.history]}
+    log(f"  victims and survivors: {kill_s:.1f} s")
+    return out
+
+
+def adaptive_runs(api, kill_path, f0):
+    """Phase 5b: each adaptive scheme streamed at the SUSY width for 2
+    epochs; finite objectives below the value at w = 0, weights applied
+    (the planner forces streamed placement with read-ahead off)."""
+    out = []
+    for s in ("chunk_importance", "stochastic_batch"):
+        p = api.plan(api.ExperimentSpec(
+            api.DataSource.corpus(kill_path), solver="saga", scheme=s,
+            batch_size=B, epochs=2))
+        if p.backend != api.STREAMED_EAGER:
+            raise AssertionError(f"adaptive {s} planned {p.backend}")
+        r = api.execute(p)
+        hist = [float(h) for h in r.history]
+        if not all(math.isfinite(h) and h < f0 for h in hist):
+            raise AssertionError(f"adaptive {s}: objectives {hist} not "
+                                 f"finite and below {f0}")
+        bd = r.breakdown()
+        log(f"  {s} saga ({p.backend}, m={p.num_batches}): epoch_s "
+            f"{bd['epoch_s']:.3f}, history {[round(h, 6) for h in hist]}, "
+            f"sampler state keys {sorted(r.sampler_state)}")
+        out.append({"scheme": s, "backend": p.backend, "history": hist,
+                    "epoch_s": bd["epoch_s"],
+                    "compute_s_per_epoch": bd["compute_s_per_epoch"],
+                    "access_s_per_epoch": bd["access_s_per_epoch"]})
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -827,22 +1293,27 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import api
-    from repro_torch.data import dataset, sparse
-    from repro_torch.kernels import _build, fused_erm as fe, sparse_erm as se
+    from repro_torch.core import access_model as am, samplers
+    from repro_torch.data import dataset, pipeline as pipemod, sparse
+    from repro_torch.kernels import (_build, fused_erm as fe, ops,
+                                     sampled_gather as sg, sparse_erm as se)
 
     t_start = time.perf_counter()
     rows, n = (200_000, 18) if args.quick else (5_000_000, 18)
     csr_rows = 20_000 if args.quick else 100_000
     mrows = 2_000 if args.quick else 20_000
+    arows = 20_000 if args.quick else 200_000     # access_time.py's corpus
+    krows = 100_000 if args.quick else 1_000_000  # phases 5 and 5b
     reps = 10 if args.quick else 50
     smi = smi_line()
     log(f"[1] device: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    _build.load_all("fused_erm", "sparse_erm")
+    _build.load_all("fused_erm", "sparse_erm", "sampled_gather")
     build_s = time.perf_counter() - t0
-    log(f"  built fused_erm and sparse_erm in {build_s:.1f} s")
-    for name in ("fused_erm", "sparse_erm"):
+    log(f"  built fused_erm, sparse_erm and sampled_gather in "
+        f"{build_s:.1f} s")
+    for name in ("fused_erm", "sparse_erm", "sampled_gather"):
         for line in _build.BUILD_LOGS[name].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}:", line.strip())
@@ -866,6 +1337,12 @@ def main(argv=None) -> int:
     log(f"  corpus {csr_path.name}: {csr.rows} x {csr.features}, nnz "
         f"{csr.nnz}, kmax {csr.kmax}, {csr.meta.nbytes / 1e6:.1f} MB in "
         f"{csr_s:.1f} s")
+    kill_path = root / f"susy_synth_{krows}x{n}.bin"
+    t0 = time.perf_counter()
+    if not kill_path.exists():
+        dataset.synth_erm_corpus(kill_path, rows=krows, features=n, seed=1)
+    log(f"  corpus {kill_path.name} (phases 5 and 5b) in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     log("[2] kernels against their plain versions")
     mm, _ = dataset.open_corpus(path)
@@ -892,8 +1369,6 @@ def main(argv=None) -> int:
                 f"{t['host_ms']:.4f} ms per call on the host, plain "
                 f"{t['plain_ms']:.4f}, library {lib}, bound "
                 f"{t['bound_ms']:.6f} ({t['bound_by']})")
-    del Xm, ym
-    torch.cuda.empty_cache()
 
     log("[2b] the sparse kernels on the CSR corpus")
     t0 = time.perf_counter()
@@ -914,6 +1389,27 @@ def main(argv=None) -> int:
             f"{t['nnz_per_batch']:.0f} nonzeros a batch")
     del dev
     torch.cuda.empty_cache()
+
+    log("[2c] the gather kernels on the card")
+    check_gather_kernels(torch, sg, Xm, errs)
+    Xa = torch.randn(arows, 100, device="cuda", generator=gw)
+    Xw = torch.randn(20_000, 4096, device="cuda", generator=gw)
+    gather_timing = {"susy": time_gather(torch, sg, Xm, B, reps),
+                     "access": time_gather(torch, sg, Xa, 1000, reps),
+                     "wide": time_gather(torch, sg, Xw, B, reps)}
+    for shape, tab in gather_timing.items():
+        for name, t in tab.items():
+            log(f"  {shape} {t['shape']} {name}: {t['ms']:.4f} ms device, "
+                f"{t['host_ms']:.4f} ms per call on the host, plain "
+                f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound "
+                f"{t['bound_ms']:.6f} ({t['bound_by']})")
+    del Xm, ym, Xa, Xw
+    torch.cuda.empty_cache()
+
+    log("[2d] access time per scheme (benchmarks/access_time.py, ported)")
+    access, gather_launches = access_time(
+        torch, sg, ops, pipemod, samplers, am, dataset, root, arows, reps)
+    torch.cuda.empty_cache()
     fe.reset_launches()     # the comparisons above do not count
     se.reset_launches()
 
@@ -929,6 +1425,16 @@ def main(argv=None) -> int:
     log("[4b] the 15 CSR cells, sparse-csr against densified streamed-eager")
     csr_mcells = csr_matrix(api, sparse, dataset, root)
 
+    log("[5] durable runs at full size")
+    durable = durable_runs(api, path, csr_path, root)
+
+    log("[5b] adaptive schemes, streamed at the SUSY width")
+    adaptive = adaptive_runs(api, kill_path, math.log(2.0))
+
+    log("[5/5b] SIGKILL and resume, in child processes on the card")
+    killed = kill_phase(api, kill_path, root,
+                        ("chunk_importance", "stochastic_batch"))
+
     def record(name, source, replaces, count, t):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": count,
@@ -940,7 +1446,10 @@ def main(argv=None) -> int:
                 for k, r in REPLACES.items()]
                + [record(k, SPARSE_SOURCE, r, sparse_launches[k],
                          sparse_timing[k])
-                  for k, r in SPARSE_REPLACES.items()])
+                  for k, r in SPARSE_REPLACES.items()]
+               + [record(k, GATHER_SOURCE, r, gather_launches[k],
+                         gather_timing["access"][k])
+                  for k, r in GATHER_REPLACES.items()])
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "torch": torch.__version__, "quick": args.quick,
@@ -954,6 +1463,9 @@ def main(argv=None) -> int:
         "sparse_kernel_path": kernel_path,
         "sparse_launches": sparse_launches, "csr_cells": csr_cells,
         "matrix_rows": mrows, "matrix": mcells, "csr_matrix": csr_mcells,
+        "timing_gather": gather_timing, "gather_launches": gather_launches,
+        "access_time": access, "durable": durable, "adaptive": adaptive,
+        "sigkill": killed,
         "total_s": time.perf_counter() - t_start}, indent=2) + "\n")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

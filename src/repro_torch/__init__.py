@@ -2,8 +2,9 @@
 
 The JAX package ``repro`` is the reference; this package computes the same
 things with PyTorch tensors, and its kernels are hand-written CUDA
-(:mod:`repro_torch.kernels.fused_erm`, :mod:`repro_torch.kernels.sparse_erm`).  It imports neither JAX nor anything
-of ``repro``.
+(:mod:`repro_torch.kernels.fused_erm`, :mod:`repro_torch.kernels.sparse_erm`,
+:mod:`repro_torch.kernels.sampled_gather`).  It imports neither JAX nor
+anything of ``repro``.
 
 The reference is strict float32, so importing the package turns TF32 off for
 matrix products and convolutions.  Entry points run on the card unless the

@@ -18,6 +18,20 @@
   same surface as the reference's: objective trace, ``AccessStats``,
   wall-clock breakdown, span timeline, and resumable state
   (``execute(plan, resume=prev)``).
+* Durable runs: a :class:`~repro_torch.checkpoint.CheckpointPolicy` in
+  ``ExperimentSpec.checkpoint`` makes every backend snapshot the run at
+  epoch boundaries (solver state, sampler state, objective trace,
+  ``AccessStats`` and the plan fingerprint) in the reference's layout on
+  disk, and :func:`resume_from` rebuilds a resumable result — with no plan
+  given, the plan too — after a crash.  A resumed run gives bitwise the
+  ``w`` and history of an uninterrupted one on the same device.  The
+  fingerprint holds the reference's fields plus ``device``, which is
+  strict: the CPU and the card sum in different orders, so a run resumed
+  across them would not continue the same trajectory.
+* Adaptive schemes (``chunk_importance``, ``stochastic_batch``) run on the
+  streamed backends: the weighted engines, read-ahead off, and the
+  per-epoch ``observe`` feedback applied before each checkpoint, so a
+  resume carries the learned sampler state.
 
 The resident epoch's schedule is drawn on the host from the Scheme stream
 (:func:`repro_torch.core.samplers.epoch_schedule`), outside the compute
@@ -31,21 +45,20 @@ host passes (``repro_torch.data.sparse``), and ``kernel='fused'`` or
 ``placement='resident'`` raise the reference's PlanErrors.
 
 Not in the port yet, each refused by :func:`plan` with a PlanError: device
-meshes (``mesh=``), durable runs (``checkpoint=``), adaptive schemes, and
-the plan audit; :func:`resume_from` and :meth:`RunResult.from_json`
-likewise.
+meshes (``mesh=``) and the plan audit.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-import os
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..checkpoint.checkpointer import (Checkpointer, CheckpointPolicy,
+                                       atomic_write_text)
 from ..obs import (ACCESS, COMPUTE, EPOCH, GATHER as GATHER_LANE, H2D,
                    NULL_TRACER, Timeline, TracePolicy, Tracer)
 from . import samplers, schemes
@@ -122,9 +135,11 @@ class DataSource:
 class ExperimentSpec:
     """Frozen description of one experiment: problem + data + scheme +
     solver + step rule + budget, with the reference's fields.  The last
-    block overrides planner decisions; ``mesh``, ``reduction`` and
-    ``checkpoint`` are accepted and refused by :func:`plan` until the port
-    has them."""
+    block overrides planner decisions; ``mesh`` and ``reduction`` are
+    accepted and refused by :func:`plan` until the port has them.
+    ``checkpoint`` (a :class:`CheckpointPolicy`) makes the run durable;
+    ``trace`` is excluded from the plan fingerprint, so a checkpointed run
+    may resume with tracing toggled either way."""
     data: DataSource
     # problem
     loss: str = LOGISTIC
@@ -151,7 +166,7 @@ class ExperimentSpec:
     resident_budget: Optional[int] = None   # bytes; None → device memory
     mesh: Optional[object] = None
     reduction: str = AUTO
-    checkpoint: Optional[object] = None
+    checkpoint: Optional[CheckpointPolicy] = None
     trace: Optional[TracePolicy] = None
 
     @property
@@ -205,7 +220,10 @@ class ExecutionPlan:
             + (f", nnz={self.nnz}, kmax={self.kmax}" if self.fmt == CSR
                else "") + ")",
             f"method    : {self.cfg.solver}/{self.step_rule} under "
-            f"{self.scheme_name} sampling, step={self.cfg.step_size:.3g}",
+            f"{self.scheme_name}"
+            + (f"{self.scheme_obj.params()}" if self.scheme_obj.params()
+               else "")
+            + f" sampling, step={self.cfg.step_size:.3g}",
             f"epoch     : m={self.num_batches} batches of "
             f"{self.spec.batch_size}, {self.chunk} per device call, "
             f"{self.spec.epochs} epochs",
@@ -312,8 +330,14 @@ def plan(spec: ExperimentSpec, *, device=None,
     if spec.mesh is not None:
         raise PlanError("device meshes (mesh=) are " + _NOT_PORTED.format(12))
     if spec.checkpoint is not None:
-        raise PlanError("durable runs (checkpoint=) are "
-                        + _NOT_PORTED.format(8))
+        if not isinstance(spec.checkpoint, CheckpointPolicy):
+            raise PlanError(
+                f"checkpoint= wants a repro_torch.checkpoint.CheckpointPolicy,"
+                f" got {type(spec.checkpoint).__name__}")
+        try:
+            spec.checkpoint.validate()
+        except ValueError as e:
+            raise PlanError(str(e)) from e
     if spec.trace is not None:
         if not isinstance(spec.trace, TracePolicy):
             raise PlanError(
@@ -323,9 +347,27 @@ def plan(spec: ExperimentSpec, *, device=None,
             spec.trace.validate()
         except ValueError as e:
             raise PlanError(str(e)) from e
+
+    # ---- adaptive schemes: host-feedback sampling constrains the lowering
+    # (a device mesh is refused above for every scheme)
     if scheme_obj.adaptive:
-        raise PlanError(f"adaptive scheme {scheme_obj.name!r}: adaptive "
-                        f"schemes are " + _NOT_PORTED.format(10))
+        if spec.step_mode == LINE_SEARCH:
+            raise PlanError(
+                f"scheme {scheme_obj.name!r} emits importance-weighted "
+                "gradients, but line search probes the UNWEIGHTED (and, for "
+                "stochastic batch size, zero-padded) batch objective — the "
+                "VectorizedLS trial ladder's Armijo comparison would mix "
+                "the two normalizations; use step_mode='constant'")
+        if spec.placement == RESIDENT or spec.data.kind == ARRAYS:
+            raise PlanError(
+                f"scheme {scheme_obj.name!r} picks each batch on the host "
+                "(per-step draws + feedback), which a resident epoch over a "
+                "precomputed schedule cannot replay; it needs a streamed "
+                "corpus (placement='streamed' over DataSource.corpus)")
+        if spec.kernel == FUSED:
+            raise PlanError(
+                f"scheme {scheme_obj.name!r} needs the streamed engine; "
+                "fused kernels sample from a device-resident corpus")
 
     probe = _probe(spec.data)
     if spec.batch_size > probe.rows:
@@ -350,6 +392,12 @@ def plan(spec: ExperimentSpec, *, device=None,
                 "mode is a ROADMAP follow-on)")
         placement = STREAMED
         why.append("CSR corpus → streamed sparse engine")
+    elif scheme_obj.adaptive:
+        placement = STREAMED
+        why.append(f"{scheme_obj.name} sampling picks batches on the host "
+                   "(per-step draws + feedback) → streamed placement; "
+                   "pipeline read-ahead is disabled so the scheme state is "
+                   "exact at every epoch boundary")
     elif spec.placement != AUTO:
         placement = spec.placement
         why.append(f"placement {placement!r} forced by spec")
@@ -425,6 +473,11 @@ def plan(spec: ExperimentSpec, *, device=None,
                    "(ls_mode='sequential' keeps the backtracking reference)"
                    if spec.ls_mode == AUTO else
                    f"ls_mode {ls_mode!r} forced by spec")
+    if spec.checkpoint is not None:
+        pol = spec.checkpoint
+        why.append(f"durable run: checkpoint every {pol.every} epoch(s) to "
+                   f"{pol.directory} (keep {pol.keep}, "
+                   f"{'async' if pol.async_save else 'blocking'} saves)")
     if spec.trace is not None:
         tp = spec.trace
         why.append(
@@ -474,21 +527,14 @@ def _auto_step_size(spec: ExperimentSpec, probe: _Probe) -> float:
 # the result
 # ---------------------------------------------------------------------------
 
-def _atomic_write_text(path, text: str) -> Path:
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.parent / f".tmp_{path.name}_{os.getpid()}"
-    tmp.write_text(text)
-    os.replace(tmp, path)
-    return path
-
-
 @dataclasses.dataclass
 class RunResult:
     """Uniform outcome of :func:`execute` (see the reference's docstring):
     ``history`` is the cumulative per-epoch objective trace, ``objective``
     the final full-corpus value, ``solver_state``/``sampler_state`` resume
-    the run exactly via ``execute(plan, resume=result)``."""
+    the run exactly via ``execute(plan, resume=result)``.  (``solver_state``
+    is ``None`` on results rebuilt by :meth:`from_json`: JSON carries the
+    summary; on-disk checkpoints carry resumable state.)"""
     plan: ExecutionPlan
     objective: float
     history: np.ndarray
@@ -584,8 +630,9 @@ class RunResult:
         return report
 
     def to_json(self) -> Dict:
-        """JSON-safe summary with the reference's schema-3 keys (the device
-        is recorded in ``plan.why``)."""
+        """JSON-safe summary with the reference's schema-3 keys, ``w``,
+        ``train_s`` and ``compute_s`` included so :meth:`from_json` rebuilds
+        the whole summary (the device is recorded in ``plan.why``)."""
         p = self.plan
         return {
             "schema": 3,
@@ -621,21 +668,68 @@ class RunResult:
 
     def save_json(self, path) -> Path:
         """Write :meth:`to_json` atomically (tmp + ``os.replace``)."""
-        return _atomic_write_text(path,
-                                  json.dumps(self.to_json(), indent=2) + "\n")
+        return atomic_write_text(path,
+                                 json.dumps(self.to_json(), indent=2) + "\n")
 
     @staticmethod
     def from_json(source, plan_: ExecutionPlan) -> "RunResult":
-        raise PlanError("RunResult.from_json is " + _NOT_PORTED.format(8))
+        """Rebuild the JSON surface of a saved result (a dict or a path)
+        against ``plan_``: :meth:`to_json` of the result equals the saved
+        one, but ``solver_state`` is ``None`` — resumable state comes from a
+        checkpoint through :func:`resume_from`."""
+        d = source
+        if not isinstance(d, dict):
+            d = json.loads(Path(source).read_text())
+        want = {"backend": plan_.backend, "solver": plan_.cfg.solver,
+                "scheme": plan_.scheme_name, "rows": plan_.rows,
+                "devices": 1}
+        got = {"backend": d["backend"], "solver": d["plan"]["solver"],
+               "scheme": d["plan"]["scheme"], "rows": d["plan"]["rows"],
+               "devices": d["plan"]["devices"]}
+        if want != got:
+            bad = [f"{k}: json {got[k]!r} != plan {want[k]!r}"
+                   for k in want if got[k] != want[k]]
+            raise ValueError("saved RunResult JSON does not describe this "
+                             "plan; differing fields:\n  " + "\n  ".join(bad))
+        from ..data import pipeline as pipemod
+        fields = {f.name for f in dataclasses.fields(pipemod.AccessStats)}
+        stats = pipemod.AccessStats(**{k: v for k, v in d["stats"].items()
+                                       if k in fields})
+        metrics = d.get("metrics") or {}
+        timeline = Timeline(events=[], metrics=metrics) if metrics else None
+        return RunResult(
+            plan=plan_, objective=d["objective"],
+            history=np.asarray(d["history"]),
+            w=np.asarray(d["w"], np.float32), solver_state=None,
+            sampler_state=d["sampler_state"], epochs_run=d["epochs_run"],
+            epochs_done=d["epochs_done"], stats=stats,
+            train_s=d["train_s"], compute_s=d["compute_s"],
+            timeline=timeline)
 
 
 # ---------------------------------------------------------------------------
-# plan identity: what a resume must match
+# plan identity: what a resume / restore must match
 # ---------------------------------------------------------------------------
+
+# STRICT fields pin the trajectory arithmetic and the batch schedule — a
+# checkpoint restored under a different value of any of these would not
+# continue the same run.  ``device`` is the port's one field beyond the
+# reference's: the CPU and the card sum in different orders.  ELASTIC fields
+# may change across a restart: the chunk shape and the epoch budget reshape
+# HOW the same trajectory executes, not WHAT it computes (``shards`` and
+# ``reduction`` are fixed at 1 and None until the port has device meshes).
+_FP_STRICT = ("solver", "scheme", "scheme_params", "loss", "reg", "seed",
+              "batch_size",
+              "step_mode", "step_size", "ls_mode", "ls_shrink", "ls_c",
+              "ls_max_iter", "record_objective", "data", "fmt", "rows",
+              "features", "num_batches", "placement", "kernel", "device")
+_FP_ELASTIC = ("backend", "chunk", "shards", "reduction", "epochs")
+
 
 def _plan_fingerprint(p: ExecutionPlan) -> Dict:
-    """What pins the trajectory arithmetic and the batch schedule; the
-    chunk shape and the epoch budget may change across a resume."""
+    """JSON-safe identity of a plan, stored in every checkpoint's meta and
+    validated by :func:`resume_from` before any array is loaded: the
+    reference's keys plus ``device``."""
     s = p.spec
     return {
         "solver": p.cfg.solver, "scheme": p.scheme_name,
@@ -648,30 +742,104 @@ def _plan_fingerprint(p: ExecutionPlan) -> Dict:
         "data": str(s.data.path) if s.data.path is not None else None,
         "fmt": p.fmt, "rows": p.rows, "features": p.features,
         "num_batches": p.num_batches, "placement": p.placement,
-        "kernel": p.kernel, "device": p.device,
+        "kernel": p.kernel,
+        "backend": p.backend, "chunk": p.chunk, "shards": 1,
+        "reduction": None, "epochs": s.epochs,
+        "device": p.device,
     }
 
 
-def _check_same_run(prev: ExecutionPlan, cur: ExecutionPlan) -> None:
-    a, b = _plan_fingerprint(prev), _plan_fingerprint(cur)
-    diffs = [f"{k}: resume {a[k]!r} != plan {b[k]!r}"
-             for k in a if a[k] != b[k]]
-    pd, cd = prev.spec.data, cur.spec.data
-    if pd.kind == ARRAYS and not (pd.X is cd.X and pd.y is cd.y):
-        diffs.append("spec.data: in-memory sources must be the same arrays "
-                     "(X/y object identity)")
-    if diffs:
+def _validate_fingerprint(saved: Dict, plan_: ExecutionPlan) -> None:
+    """Field-by-field check that a checkpoint belongs to ``plan_``: every
+    strict field must match exactly.  (The reference's extra rule, that a
+    'psum' checkpoint pins its mesh, waits for device meshes.)"""
+    cur = _plan_fingerprint(plan_)
+    bad = [f"{k}: checkpoint {saved.get(k)!r} != plan {cur[k]!r}"
+           for k in _FP_STRICT if saved.get(k) != cur[k]
+           # checkpoints written before the Scheme protocol carry no
+           # scheme_params block; the scheme NAME still pins the schedule
+           and not (k == "scheme_params" and k not in saved)]
+    if bad:
         raise ValueError(
-            "resume result came from a different plan than the one being "
-            "executed — a resumed run must continue the SAME plan (and, for "
-            "in-memory sources, the same arrays) or the batch schedule "
-            "silently diverges from an uninterrupted run; differing "
-            "fields:\n  " + "\n  ".join(diffs))
+            "checkpoint does not belong to this plan — a restored run must "
+            "continue the SAME plan (chunking and epoch budget may change; "
+            "everything else, the device included, pins the trajectory); "
+            "differing fields:\n  " + "\n  ".join(bad))
 
 
-def resume_from(directory, plan_: Optional[ExecutionPlan] = None, *,
-                step: Optional[int] = None) -> RunResult:
-    raise PlanError("resume_from (durable runs) is " + _NOT_PORTED.format(8))
+def _plan_diff(a: ExecutionPlan, b: ExecutionPlan) -> List[str]:
+    """Human-readable field-by-field differences between two plans, for the
+    ``execute(resume=)`` rejection message."""
+    diffs = []
+    for f in dataclasses.fields(ExperimentSpec):
+        va, vb = getattr(a.spec, f.name), getattr(b.spec, f.name)
+        if f.name == "scheme":
+            # a legacy string and the Scheme object it resolves to are the
+            # same scheme — compare canonically
+            va, vb = schemes.resolve(va), schemes.resolve(vb)
+        if va != vb:
+            diffs.append(f"spec.{f.name}: resume {va!r} != plan {vb!r}")
+    for name in ("backend", "placement", "kernel", "fmt", "rows",
+                 "features", "num_batches", "chunk", "device"):
+        va, vb = getattr(a, name), getattr(b, name)
+        if va != vb:
+            diffs.append(f"plan.{name}: resume {va!r} != plan {vb!r}")
+    for name in SolverConfig._fields:
+        va, vb = getattr(a.cfg, name), getattr(b.cfg, name)
+        if va != vb:
+            diffs.append(f"cfg.{name}: resume {va!r} != plan {vb!r}")
+    return diffs
+
+
+class _RunCheckpointer:
+    """Bridges an epoch loop to the :class:`Checkpointer`.
+
+    Owns the cadence (every ``policy.every`` CUMULATIVE epochs, plus always
+    the final epoch of the call, so a completed segment is resumable
+    regardless of alignment) and packages the resumable surface into each
+    snapshot's meta: sampler state, cumulative objective trace,
+    :class:`AccessStats` and the plan fingerprint.  The solver state is the
+    array payload.  ``after_epoch`` runs OUTSIDE the timers: the host
+    snapshot is synchronous (the next epoch updates the state in place), the
+    disk write overlaps the next epoch when the policy is async.
+    """
+
+    def __init__(self, plan_: ExecutionPlan, done0: int, epochs: int,
+                 tracer=NULL_TRACER):
+        self.pol = plan_.spec.checkpoint
+        self.ck = (Checkpointer(self.pol.directory, keep=self.pol.keep,
+                                async_save=self.pol.async_save,
+                                tracer=tracer)
+                   if self.pol is not None else None)
+        self.plan = plan_
+        self.done0 = done0
+        self.epochs = epochs
+
+    def after_epoch(self, e: int, state: SolverState, sampler_state: Dict,
+                    history: List[float], stats) -> None:
+        if self.ck is None:
+            return
+        done = self.done0 + e + 1
+        if done % self.pol.every and e + 1 < self.epochs:
+            return
+        meta = {
+            "schema": 1,
+            "epochs_done": done,
+            "sampler_state": sampler_state,
+            "history": [float(h) for h in history],
+            "objective": float(history[-1]) if history else None,
+            "plan": _plan_fingerprint(self.plan),
+            "policy": {"every": self.pol.every, "keep": self.pol.keep,
+                       "async_save": self.pol.async_save},
+            "stats": dataclasses.asdict(stats),
+        }
+        self.ck.save(done, state, meta)
+
+    def finish(self) -> None:
+        # a failed async write surfaces HERE — the run must not report
+        # durable state it failed to persist
+        if self.ck is not None:
+            self.ck.wait()
 
 
 # ---------------------------------------------------------------------------
@@ -694,8 +862,39 @@ def execute(plan_: ExecutionPlan, *, resume: Optional[RunResult] = None,
     epochs = plan_.spec.epochs if epochs is None else epochs
     if resume is not None:
         if resume.solver_state is None:
-            raise ValueError("resume result carries no solver state")
-        _check_same_run(resume.plan, plan_)
+            raise ValueError(
+                "resume result carries no solver state (RunResult.from_json "
+                "rebuilds the summary surface only) — reconstruct resumable "
+                "state from an on-disk checkpoint via "
+                "repro_torch.api.resume_from(directory)")
+        prev, cur = resume.plan.spec.data, plan_.spec.data
+        # DataSource equality excludes array payloads, so in-memory sources
+        # additionally require the SAME arrays
+        same_arrays = (prev.kind != ARRAYS
+                       or (prev.X is cur.X and prev.y is cur.y))
+        # identity is the RESOLVED trajectory (the fingerprint), not raw
+        # spec equality: a plan rebuilt from a checkpoint forces fields the
+        # original spec left 'auto', and the chunking and epoch budget may
+        # change across a restart
+        try:
+            _validate_fingerprint(_plan_fingerprint(resume.plan), plan_)
+            same_run = True
+        except ValueError:
+            same_run = False
+        if not same_run or not same_arrays:
+            diffs = _plan_diff(resume.plan, plan_)
+            if not same_arrays:
+                diffs.append("spec.data: in-memory sources must be the "
+                             "same arrays (X/y object identity)")
+            raise ValueError(
+                "resume result came from a different plan than the one "
+                "being executed — a resumed run must continue the SAME "
+                "plan (and, for in-memory sources, the same arrays) or the "
+                "batch schedule silently diverges from an uninterrupted "
+                "run; differing fields:\n  "
+                + "\n  ".join(diffs
+                              or ["(plans compare unequal with no "
+                                  "field-level difference)"]))
     pol = plan_.spec.trace
     tracer = pol.make_tracer() if pol is not None else NULL_TRACER
     if plan_.placement == RESIDENT:
@@ -777,31 +976,45 @@ def _execute_resident(plan_: ExecutionPlan, resume: Optional[RunResult],
     history: List[float] = []
     compute_s = 0.0
     train_s = 0.0
-    for e in range(epochs):
-        with tracer.span("epoch", EPOCH, epoch=done0 + e):
-            # the epoch's schedule: drawn on the host from the Scheme stream
-            # (outside the compute span), staged through the H2D lane
-            sched_h = torch.from_numpy(samplers.epoch_schedule(
-                scheme, spec.seed, done0 + e, l, b))
-            with tracer.timespan("stage_schedule", H2D,
-                                 bytes=sched_h.nbytes) as sp:
-                sched = sched_h.to(device)
-                _sync(device)
-            stats.record_h2d(sp.dur, sched_h.nbytes)
-            with tracer.timespan("resident_epoch", COMPUTE, epoch=done0 + e,
-                                 step_rule=plan_.step_rule) as sc:
-                state = resident_epoch(problem, cfg, state, X, y, sched, b)
-                _sync(device)
-        compute_s += sc.dur
-        train_s += sc.dur
-        if cfg.step_mode == LINE_SEARCH:
-            tracer.metrics.counter("ls.invocations").inc(plan_.num_batches)
-        if spec.data.kind != ARRAYS and e > 0:
-            # every epoch after the first of THIS call would have restaged
-            # the corpus
-            stats.record_h2d_saved(h2d_dt)
-        if spec.record_objective:
-            history.append(objective(state.w))     # outside the timers
+    rck = _RunCheckpointer(plan_, done0, epochs, tracer)
+    try:
+        for e in range(epochs):
+            with tracer.span("epoch", EPOCH, epoch=done0 + e):
+                # the epoch's schedule: drawn on the host from the Scheme
+                # stream (outside the compute span), staged through the H2D
+                # lane
+                sched_h = torch.from_numpy(samplers.epoch_schedule(
+                    scheme, spec.seed, done0 + e, l, b))
+                with tracer.timespan("stage_schedule", H2D,
+                                     bytes=sched_h.nbytes) as sp:
+                    sched = sched_h.to(device)
+                    _sync(device)
+                stats.record_h2d(sp.dur, sched_h.nbytes)
+                with tracer.timespan("resident_epoch", COMPUTE,
+                                     epoch=done0 + e,
+                                     step_rule=plan_.step_rule) as sc:
+                    state = resident_epoch(problem, cfg, state, X, y, sched,
+                                           b)
+                    _sync(device)
+            compute_s += sc.dur
+            train_s += sc.dur
+            if cfg.step_mode == LINE_SEARCH:
+                tracer.metrics.counter("ls.invocations").inc(
+                    plan_.num_batches)
+            if spec.data.kind != ARRAYS and e > 0:
+                # every epoch after the first of THIS call would have
+                # restaged the corpus
+                stats.record_h2d_saved(h2d_dt)
+            if spec.record_objective:
+                history.append(objective(state.w))     # outside the timers
+            # the schedule is a function of (seed, epoch): the sampler state
+            # is the epoch count, and a resume needs no key
+            rck.after_epoch(e, state,
+                            {"scheme": plan_.scheme_name, "seed": spec.seed,
+                             "epochs": done0 + e + 1},
+                            prefix + history, stats)
+    finally:
+        rck.finish()
 
     final = history[-1] if history else objective(state.w)
     return RunResult(
@@ -838,7 +1051,8 @@ def _execute_streamed(plan_: ExecutionPlan, resume: Optional[RunResult],
                       epochs: int, tracer: Tracer = NULL_TRACER) -> RunResult:
     """The ``streamed-eager`` and ``sparse-csr`` backends: one chunked loop
     (:func:`_drive_chunked`) over a dense row stream or a CSR stream of
-    padded-ELL batches."""
+    padded-ELL batches; adaptive schemes take the weighted engines and
+    :func:`_drive_chunked_adaptive`."""
     from ..data import pipeline as pipemod
 
     spec, cfg = plan_.spec, plan_.cfg
@@ -849,17 +1063,25 @@ def _execute_streamed(plan_: ExecutionPlan, resume: Optional[RunResult],
     b = spec.batch_size
     state, done0 = _resume_state(plan_, resume, device)
     start_step = done0 * m
-    epoch_fn = make_epoch_fn(problem, cfg)
+    scheme_obj = plan_.scheme_obj
+    adaptive = scheme_obj.adaptive
+    epoch_fn = make_epoch_fn(problem, cfg, weighted=adaptive)
 
+    # adaptive schemes: read-ahead is off (prefetch=0) so the sampler state
+    # is exact at every epoch boundary, and a resumed run restores the
+    # scheme's learning state (scores / cursor) from the checkpoint's own
+    # meta instead of the (seed, step) arithmetic of the uniform schemes
+    smeta = (resume.sampler_state if adaptive and resume is not None
+             else None)
     pcfg = pipemod.PipelineConfig(corpus=spec.data.path, batch_size=b,
                                   sampling=spec.scheme, seed=spec.seed,
-                                  prefetch=spec.prefetch)
+                                  prefetch=0 if adaptive else spec.prefetch)
     if plan_.fmt == CSR:
         from ..data import sparse
         csr = sparse.open_csr_corpus(spec.data.path)
         kmax = plan_.kmax
         pipe = sparse.SparsePipeline(pcfg, start_step=start_step,
-                                     tracer=tracer)
+                                     tracer=tracer, sampler_meta=smeta)
         # (cols, vals, y) of k ELL batches, in pinned host buffers
         shapes = (((b, kmax), torch.int32), ((b, kmax), torch.float32),
                   ((b,), torch.float32))
@@ -876,11 +1098,16 @@ def _execute_streamed(plan_: ExecutionPlan, resume: Optional[RunResult],
 
         def eval_obj(w):
             return sparse.csr_objective(problem, csr, w.cpu().numpy())
+
+        def block_losses(w):
+            means, _ = sparse.csr_block_losses(problem, csr, w.cpu().numpy(),
+                                               b)
+            return {"block_losses": means}
     else:
         from ..data import dataset
         mm, _ = dataset.open_corpus(spec.data.path)
         pipe = pipemod.DataPipeline(pcfg, start_step=start_step,
-                                    tracer=tracer)
+                                    tracer=tracer, sampler_meta=smeta)
         shapes = (((b, n), torch.float32), ((b,), torch.float32))
 
         def fill(bufs, i, rows):
@@ -905,16 +1132,35 @@ def _execute_streamed(plan_: ExecutionPlan, resume: Optional[RunResult],
             return (total / plan_.rows
                     + 0.5 * problem.reg * float(torch.dot(w, w)))
 
+        def block_losses(w):
+            # per-BLOCK mean loss (blocks = the b-row batch slots the
+            # contiguous schemes index) in one streamed numpy pass, rows
+            # binned by global offset, as the reference does
+            from ..data.sparse import _loss_np
+            wh = w.detach().cpu().numpy()
+            sums = np.zeros(m, np.float64)
+            cnt = np.zeros(m, np.int64)
+            lo = 0
+            for Xc, yc in row_chunks():
+                per = _loss_np(problem.loss, Xc @ wh, yc)
+                blk = (lo + np.arange(Xc.shape[0])) // b
+                np.add.at(sums, blk, per)
+                np.add.at(cnt, blk, 1)
+                lo += Xc.shape[0]
+            return {"block_losses": sums / np.maximum(cnt, 1)}
+
     def alloc(k):
         # pinned host buffers: the stager's copy to the card is asynchronous
         return tuple(torch.empty((k,) + shape, dtype=dt, pin_memory=pin)
                      for shape, dt in shapes)
 
-    # warm the device (first kernels, allocator) outside the timed region
+    # warm the device (first kernels, allocator) outside the timed region;
+    # the weighted (adaptive) engines take a trailing (k,) weight vector
     dummy = init_state(cfg.solver, torch.zeros(n, device=device), m)
     epoch_fn(dummy, *(torch.zeros((1,) + shape, dtype=dt, device=device)
                       for shape, dt in shapes),
-             torch.zeros(1, dtype=torch.int32, device=device))
+             torch.zeros(1, dtype=torch.int32, device=device),
+             *((torch.ones(1, device=device),) if adaptive else ()))
     _sync(device)
 
     snapshot_begin = None
@@ -927,22 +1173,44 @@ def _execute_streamed(plan_: ExecutionPlan, resume: Optional[RunResult],
                                    w, data_term_only=data_only))
 
     prefix = [] if resume is None else [float(h) for h in resume.history]
-    state, history, compute_s, train_s = _drive_chunked(
-        pipe, epoch_fn, state, m=m, K=K, epochs=epochs,
-        start_step=start_step, alloc=alloc, fill=fill,
-        snapshot_begin=snapshot_begin,
-        eval_fn=eval_obj if spec.record_objective else None,
-        put=_make_put(device), device=device, tracer=tracer, epoch0=done0,
-        step_rule=plan_.step_rule)
-    if cfg.step_mode == LINE_SEARCH:
-        tracer.metrics.counter("ls.invocations").inc(m * epochs)
+    rck = _RunCheckpointer(plan_, done0, epochs, tracer)
+
+    def on_epoch(e, st, hist):
+        if adaptive:
+            # the adaptive chunk loop drains exactly m draws per epoch and
+            # applies observe() BEFORE this hook, so the scheme's own meta
+            # (scores / cursor included) is exact here
+            smeta_e = pipe.sampler_meta()
+        else:
+            # the count of CONSUMED batches — the prefetch producer may have
+            # advanced the live sampler a few steps further
+            smeta_e = {"scheme": plan_.scheme_name, "seed": spec.seed,
+                       "step": start_step + m * (e + 1)}
+        rck.after_epoch(e, st, smeta_e, prefix + hist, pipe.stats)
+
+    try:
+        state, history, compute_s, train_s = _drive_chunked(
+            pipe, epoch_fn, state, m=m, K=K, epochs=epochs,
+            start_step=start_step, alloc=alloc, fill=fill,
+            snapshot_begin=snapshot_begin,
+            eval_fn=eval_obj if spec.record_objective else None,
+            put=_make_put(device), device=device, on_epoch=on_epoch,
+            tracer=tracer, epoch0=done0, step_rule=plan_.step_rule,
+            adaptive=adaptive,
+            feedback=(block_losses if adaptive and scheme_obj.wants_feedback
+                      else None))
+        if cfg.step_mode == LINE_SEARCH:
+            tracer.metrics.counter("ls.invocations").inc(m * epochs)
+    finally:
+        rck.finish()
 
     final = history[-1] if history else eval_obj(state.w)
     return RunResult(
         plan=plan_, objective=final, history=np.asarray(prefix + history),
         w=state.w.detach().cpu().numpy().copy(), solver_state=state,
-        sampler_state={"scheme": plan_.scheme_name, "seed": spec.seed,
-                       "step": start_step + m * epochs},
+        sampler_state=(pipe.sampler_meta() if adaptive else
+                       {"scheme": plan_.scheme_name, "seed": spec.seed,
+                        "step": start_step + m * epochs}),
         epochs_run=epochs, epochs_done=done0 + epochs, stats=pipe.stats,
         train_s=train_s, compute_s=compute_s)
 
@@ -951,15 +1219,29 @@ def _drive_chunked(pipe, epoch_fn, state, *, m: int, K: int, epochs: int,
                    start_step: int, alloc: Callable, fill: Callable,
                    snapshot_begin: Optional[Callable],
                    eval_fn: Optional[Callable], put: Callable,
-                   device: torch.device, tracer: Tracer = NULL_TRACER,
-                   epoch0: int = 0, step_rule: Optional[str] = None,
+                   device: torch.device,
+                   on_epoch: Optional[Callable] = None,
+                   tracer: Tracer = NULL_TRACER, epoch0: int = 0,
+                   step_rule: Optional[str] = None, adaptive: bool = False,
+                   feedback: Optional[Callable] = None,
                    ) -> Tuple[SolverState, List[float], float, float]:
     """The streaming engine: group the pipeline's batch stream into <=K-batch
     chunks (never crossing an epoch boundary — snapshot solvers refresh
     between epochs), double-buffer them host->device (DeviceStager), and run
-    each chunk in one engine call.  Returns (state, history, compute_s,
+    each chunk in one engine call.  ``eval_fn(w)`` (the per-epoch objective)
+    and ``on_epoch(e, state, history)`` (the checkpoint hook) run at every
+    epoch boundary, outside the timers.  With ``adaptive=True`` the pipeline
+    yields ``(payload, j, weight)`` triples and the loop switches to
+    :func:`_drive_chunked_adaptive`.  Returns (state, history, compute_s,
     train_s)."""
     from ..data import pipeline as pipemod
+
+    if adaptive:
+        return _drive_chunked_adaptive(
+            pipe, epoch_fn, state, m=m, K=K, epochs=epochs, alloc=alloc,
+            fill=fill, snapshot_begin=snapshot_begin, eval_fn=eval_fn,
+            feedback=feedback, put=put, device=device, on_epoch=on_epoch,
+            tracer=tracer, epoch0=epoch0, step_rule=step_rule)
 
     def host_chunks():
         it = iter(pipe)
@@ -1004,7 +1286,164 @@ def _drive_chunked(pipe, epoch_fn, state, *, m: int, K: int, epochs: int,
             train_s += se.dur
             if eval_fn is not None:
                 history.append(float(eval_fn(state.w)))   # untimed
+            if on_epoch is not None:
+                on_epoch(e, state, history)               # untimed
     finally:
         stager.close()
         pipe.close()
     return state, history, compute_s, train_s
+
+
+def _drive_chunked_adaptive(pipe, epoch_fn, state, *, m: int, K: int,
+                            epochs: int, alloc: Callable, fill: Callable,
+                            snapshot_begin: Optional[Callable],
+                            eval_fn: Optional[Callable],
+                            feedback: Optional[Callable], put: Callable,
+                            device: torch.device,
+                            on_epoch: Optional[Callable] = None,
+                            tracer: Tracer = NULL_TRACER, epoch0: int = 0,
+                            step_rule: Optional[str] = None,
+                            ) -> Tuple[SolverState, List[float], float, float]:
+    """The adaptive-scheme variant of :func:`_drive_chunked`, serving one
+    invariant — the scheme state is EXACT at every epoch boundary:
+
+    * the pipeline yields ``(payload, j, weight)`` triples: the scheme picks
+      the table slot ``j`` (not ``step % m``) and the unbiasedness
+      ``weight`` the weighted engine takes as a trailing ``(k,)`` vector;
+    * the :class:`DeviceStager` is scoped to ONE epoch, so after its chunks
+      drain the (prefetch=0) pipeline has consumed exactly ``m`` draws;
+    * ``feedback(w)`` lands through ``pipe.observe`` BEFORE ``on_epoch``,
+      so the checkpoint carries the post-observe learning state and a
+      resume replays the next epoch bit for bit.
+    """
+    from ..data import pipeline as pipemod
+
+    def epoch_chunks():
+        it = iter(pipe)
+        done = 0
+        while done < m:
+            k = min(K, m - done)
+            bufs = alloc(k)
+            js = torch.empty(k, dtype=torch.int32)
+            ws = torch.empty(k, dtype=torch.float32)
+            for i in range(k):
+                payload, j, w = next(it)
+                fill(bufs, i, payload)
+                js[i] = int(j)
+                ws[i] = float(w)
+            yield bufs + (js, ws)
+            done += k
+
+    history: List[float] = []
+    compute_s = 0.0
+    train_s = 0.0
+    try:
+        for e in range(epochs):
+            stager = pipemod.DeviceStager(epoch_chunks(), put=put, depth=2,
+                                          stats=pipe.stats, tracer=tracer)
+            with tracer.timespan("train_epoch", EPOCH,
+                                 epoch=epoch0 + e) as se:
+                if snapshot_begin is not None:
+                    state = snapshot_begin(state)
+                done = 0
+                for args in stager:
+                    with tracer.timespan("chunk", COMPUTE,
+                                         epoch=epoch0 + e, first_batch=done,
+                                         step_rule=step_rule) as sc:
+                        state = epoch_fn(state, *args)
+                        _sync(device)
+                        sc.set(batches=int(args[0].shape[0]))
+                    compute_s += sc.dur
+                    done += args[0].shape[0]
+            stager.close()   # producer joined: the sampler is quiescent
+            train_s += se.dur
+            if eval_fn is not None:
+                history.append(float(eval_fn(state.w)))   # untimed
+            if feedback is not None:
+                pipe.observe(feedback(state.w))           # untimed
+            if on_epoch is not None:
+                on_epoch(e, state, history)               # untimed
+    finally:
+        pipe.close()
+    return state, history, compute_s, train_s
+
+
+# ---------------------------------------------------------------------------
+# durable-run restore
+# ---------------------------------------------------------------------------
+
+def _plan_from_fingerprint(saved: Dict, directory: Path, meta: Dict,
+                           device=None) -> ExecutionPlan:
+    """Rebuild a runnable plan from a checkpoint's own fingerprint — the
+    ``resume_from(dir)`` path after a crash took the process (and its spec)
+    with it.  Every planner choice the fingerprint resolved (placement,
+    kernel, step size, ls mode, chunk) is FORCED so the rebuilt plan cannot
+    re-plan differently."""
+    if saved.get("data") is None:
+        raise ValueError(
+            "checkpoint was taken from an in-memory arrays source, which "
+            "has no path to reopen — pass the plan explicitly: "
+            "resume_from(directory, plan(spec))")
+    pol = meta.get("policy", {})
+    spec = ExperimentSpec(
+        data=DataSource.corpus(saved["data"]),
+        loss=saved["loss"], reg=saved["reg"],
+        solver=saved["solver"],
+        # rebuild the Scheme OBJECT: a bare name would drop the adaptive
+        # schemes' parameters (ema/floor/min_frac)
+        scheme=schemes.from_meta({"scheme": saved["scheme"],
+                                  "params": saved.get("scheme_params")}),
+        step_mode=saved["step_mode"], step_size=saved["step_size"],
+        ls_mode=saved["ls_mode"], ls_shrink=saved["ls_shrink"],
+        ls_c=saved["ls_c"], ls_max_iter=saved["ls_max_iter"],
+        batch_size=saved["batch_size"], epochs=saved["epochs"],
+        seed=saved["seed"], record_objective=saved["record_objective"],
+        placement=saved["placement"], kernel=saved["kernel"],
+        chunk=saved["chunk"],
+        checkpoint=CheckpointPolicy(directory, **pol))
+    return plan(spec, device=device)
+
+
+def resume_from(directory, plan_: Optional[ExecutionPlan] = None, *,
+                step: Optional[int] = None, device=None) -> RunResult:
+    """Reconstruct a resumable :class:`RunResult` from an on-disk checkpoint
+    directory — the crash-recovery entry point.
+
+    With ``plan_=None`` the plan is rebuilt from the checkpoint's
+    fingerprint (corpus-backed runs) on ``device`` — the card unless
+    ``device="cpu"`` — and is ``result.plan``.  An explicit ``plan_`` is
+    validated against the checkpoint field by field.  ``step`` picks a
+    snapshot (default: the newest COMPLETE one).  A checkpoint restores only
+    onto a plan on the device that wrote it.  Pass the result straight back:
+    ``execute(result.plan, resume=result)``.
+    """
+    directory = Path(directory)
+    if not directory.exists():
+        # Checkpointer() would mkdir it: a typo'd path must fail loudly
+        raise FileNotFoundError(f"no checkpoint directory at {directory}")
+    ck = Checkpointer(directory)
+    step_, meta = ck.read_meta(step)
+    saved = meta["plan"]
+    if plan_ is None:
+        plan_ = _plan_from_fingerprint(saved, directory, meta, device=device)
+    _validate_fingerprint(saved, plan_)
+    dev = torch.device(plan_.device)
+    # a fresh init state has the saved tree's exact structure
+    template = init_state(plan_.cfg.solver,
+                          torch.zeros(plan_.features, device=dev),
+                          plan_.num_batches)
+    state, meta = ck.restore(template, step=step_, device=dev)
+
+    from ..data import pipeline as pipemod
+    fields = {f.name for f in dataclasses.fields(pipemod.AccessStats)}
+    stats = pipemod.AccessStats(**{k: v for k, v in meta["stats"].items()
+                                   if k in fields})
+    history = [float(h) for h in meta["history"]]
+    objective = (float(meta["objective"])
+                 if meta.get("objective") is not None else float("nan"))
+    return RunResult(
+        plan=plan_, objective=objective, history=np.asarray(history),
+        w=state.w.detach().cpu().numpy().copy(), solver_state=state,
+        sampler_state=meta["sampler_state"],
+        epochs_run=0, epochs_done=meta["epochs_done"], stats=stats,
+        train_s=0.0, compute_s=0.0)

@@ -20,7 +20,8 @@ the reference's ``lax.scan`` has no counterpart the port needs):
   ``cfg.use_fused`` every gradient and line-search margin comes from the
   fused CUDA kernels (:mod:`repro_torch.kernels.fused_erm`).
 * :func:`make_epoch_fn` — the chunked engine: K staged batches per call,
-  dense rows or (``cfg.sparse``) padded-ELL CSR batches.
+  dense rows or (``cfg.sparse``) padded-ELL CSR batches; ``weighted=True``
+  adds the adaptive schemes' per-batch weights.
 
 State is updated in place where the reference donates it: a SAG/SAGA step
 writes its gradient into row ``j`` of the ``(m, n)`` table instead of
@@ -156,13 +157,28 @@ def _solver_direction(problem: ERMProblem, cfg: SolverConfig,
     return v, g, new_state
 
 
+def _weigh(gd: torch.Tensor, gd_snap: Optional[torch.Tensor],
+           weight: Optional[torch.Tensor]):
+    """The adaptive schemes' unbiasedness correction on the batch-mean data
+    gradients (``1/(m p_j)`` for importance sampling, ``b / b_t`` for a
+    zero-padded stochastic batch); ``None`` leaves them untouched."""
+    if weight is None:
+        return gd, gd_snap
+    return gd * weight, None if gd_snap is None else gd_snap * weight
+
+
 def batch_step(problem: ERMProblem, cfg: SolverConfig, state: SolverState,
-               Xb: torch.Tensor, yb: torch.Tensor, j: Index) -> SolverState:
-    """One solver update using batch ``j`` with materialized data (Xb, yb)."""
+               Xb: torch.Tensor, yb: torch.Tensor, j: Index,
+               weight: Optional[torch.Tensor] = None) -> SolverState:
+    """One solver update using batch ``j`` with materialized data (Xb, yb).
+    ``weight`` (a scalar tensor) rescales the batch-mean data gradient, as
+    the weighted schemes' ``BatchIndices.weight`` asks; ``None`` keeps the
+    uniform update."""
     w = state.w
     gd = problem.batch_grad_data(w, Xb, yb)
     gd_snap = (problem.batch_grad_data(state.snapshot, Xb, yb)
                if _needs_snapshot(cfg.solver) else None)
+    gd, gd_snap = _weigh(gd, gd_snap, weight)
     v, g, new_state = _solver_direction(problem, cfg, state, j, gd, gd_snap)
     alpha = step_rules.from_config(cfg).pick(
         step_rules.dense_probe(problem, Xb, yb), w, v, g)
@@ -172,15 +188,17 @@ def batch_step(problem: ERMProblem, cfg: SolverConfig, state: SolverState,
 def sparse_batch_step(problem: ERMProblem, cfg: SolverConfig,
                       state: SolverState, cols: torch.Tensor,
                       vals: torch.Tensor, yb: torch.Tensor,
-                      j: Index) -> SolverState:
+                      j: Index,
+                      weight: Optional[torch.Tensor] = None) -> SolverState:
     """One solver update from a padded-ELL CSR batch — the corpus is never
     densified.  ``(cols, vals)``: (b, kmax) as in
     :class:`repro_torch.data.sparse.SparseBatch`; line search backtracks on
-    the sparse batch objective."""
+    the sparse batch objective.  ``weight`` as in :func:`batch_step`."""
     w = state.w
     gd = problem.ell_batch_grad_data(w, cols, vals, yb)
     gd_snap = (problem.ell_batch_grad_data(state.snapshot, cols, vals, yb)
                if _needs_snapshot(cfg.solver) else None)
+    gd, gd_snap = _weigh(gd, gd_snap, weight)
     v, g, new_state = _solver_direction(problem, cfg, state, j, gd, gd_snap)
     alpha = step_rules.from_config(cfg).pick(
         step_rules.ell_probe(problem, cols, vals, yb), w, v, g)
@@ -280,7 +298,8 @@ def resident_epoch(problem: ERMProblem, cfg: SolverConfig, state: SolverState,
 # the chunked engine (streamed batches)
 # ---------------------------------------------------------------------------
 
-def make_epoch_fn(problem: ERMProblem, cfg: SolverConfig):
+def make_epoch_fn(problem: ERMProblem, cfg: SolverConfig,
+                  weighted: bool = False):
     """Chunked epoch engine: ``(state, Xc, yc, js) -> state`` over K staged
     mini-batches (``Xc: (K, b, n)``, ``yc: (K, b)``, ``js: (K,)`` table
     slots), one :func:`batch_step` per batch.
@@ -288,7 +307,11 @@ def make_epoch_fn(problem: ERMProblem, cfg: SolverConfig):
     With ``cfg.sparse`` the chunk is padded-ELL CSR and the signature is
     ``(state, colsc, valsc, yc, js)`` with ``colsc: (K, b, kmax)`` int32 and
     ``valsc: (K, b, kmax)`` float32, one :func:`sparse_batch_step` per
-    batch."""
+    batch.
+
+    With ``weighted=True`` (the adaptive schemes) either signature gains a
+    trailing ``ws: (K,)`` float32 vector, each batch's unbiasedness weight;
+    the unweighted engines are unchanged."""
     if cfg.use_fused:
         raise ValueError(
             "use_fused applies to the device-resident epoch: the chunked "
@@ -296,6 +319,19 @@ def make_epoch_fn(problem: ERMProblem, cfg: SolverConfig):
             "construction — there is nothing left to fuse")
 
     if cfg.sparse:
+        if weighted:
+            def sparse_epoch_chunk_w(state: SolverState, colsc: torch.Tensor,
+                                     valsc: torch.Tensor, yc: torch.Tensor,
+                                     js: torch.Tensor,
+                                     ws: torch.Tensor) -> SolverState:
+                js = js.long()
+                for i in range(colsc.shape[0]):
+                    state = sparse_batch_step(problem, cfg, state, colsc[i],
+                                              valsc[i], yc[i], js[i],
+                                              weight=ws[i])
+                return state
+            return sparse_epoch_chunk_w
+
         def sparse_epoch_chunk(state: SolverState, colsc: torch.Tensor,
                                valsc: torch.Tensor, yc: torch.Tensor,
                                js: torch.Tensor) -> SolverState:
@@ -305,6 +341,17 @@ def make_epoch_fn(problem: ERMProblem, cfg: SolverConfig):
                                           valsc[i], yc[i], js[i])
             return state
         return sparse_epoch_chunk
+
+    if weighted:
+        def epoch_chunk_w(state: SolverState, Xc: torch.Tensor,
+                          yc: torch.Tensor, js: torch.Tensor,
+                          ws: torch.Tensor) -> SolverState:
+            js = js.long()
+            for i in range(Xc.shape[0]):
+                state = batch_step(problem, cfg, state, Xc[i], yc[i], js[i],
+                                   weight=ws[i])
+            return state
+        return epoch_chunk_w
 
     def epoch_chunk(state: SolverState, Xc: torch.Tensor, yc: torch.Tensor,
                     js: torch.Tensor) -> SolverState:

@@ -118,9 +118,8 @@ def test_arrays_cannot_stream(arrays):
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(mesh=object()), "item 12"), (dict(checkpoint=object()), "item 8"),
-    (dict(scheme="chunk_importance"), "item 10"),
-    (dict(scheme="stochastic_batch"), "item 10")])
+    (dict(mesh=object()), "item 12"),
+    (dict(checkpoint=object()), "CheckpointPolicy")])
 def test_not_ported_options_are_refused(corpus, arrays, over, match):
     X, y = arrays
     _, ts = _specs(corpus, X, y, **over)
@@ -235,5 +234,5 @@ def test_json_keys_and_timeline(corpus, tmp_path, placement):
     saved = tr.save_json(tmp_path / "r.json")
     assert saved.read_text().startswith("{")
     tr.save_trace(tmp_path / "t.json")
-    with pytest.raises(tx.PlanError, match="item 8"):
-        tx.RunResult.from_json(str(saved), tr.plan)
+    assert tx.RunResult.from_json(str(saved), tr.plan).to_json() == \
+        tr.to_json()

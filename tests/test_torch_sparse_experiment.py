@@ -99,8 +99,8 @@ def test_same_plan_errors(corpus, bad):
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(mesh=object()), "item 12"), (dict(checkpoint=object()), "item 8"),
-    (dict(scheme="chunk_importance"), "item 10")])
+    (dict(mesh=object()), "item 12"),
+    (dict(checkpoint=object()), "CheckpointPolicy")])
 def test_not_ported_options_are_refused_for_csr(corpus, over, match):
     _, ts = _specs(corpus, **over)
     with pytest.raises(tx.PlanError, match=match):
